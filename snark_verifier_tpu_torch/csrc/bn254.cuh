@@ -1,0 +1,244 @@
+// Shared device routines for the BN254 kernels (K1-K4).
+//
+// Field elements cross the kernel boundary in the port's tensor layout: 16
+// little-endian 16-bit limbs held as int64, Montgomery form with R = 2^256.
+// Inside a kernel they are repacked into 8 x 32-bit words in registers.  R is
+// 2^256 either way, so the Montgomery values, and every result, are identical
+// to the JAX package's limb for limb.
+//
+// Semantics mirror snark_verifier_tpu/ops/field_pallas.py (tmul/tadd/tsub)
+// and ops/curve_pallas.py (_add_core/_dbl_core) exactly, including for
+// inputs that are not reduced below p: the Montgomery product is the unique
+// (a*b + m*p) / 2^256 followed by one conditional subtract, and the point
+// formulas run the same field operations on the same operands.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace svtpu {
+
+constexpr int NW = 8;  // 32-bit words per field element
+
+// Modulus words (little-endian) and the word-level Montgomery constant
+// n0 = -p^-1 mod 2^32; derived on the host from util/bn254 and passed by value
+// as a kernel parameter.
+struct Field {
+  uint32_t p[NW];
+  uint32_t n0;
+};
+
+struct Fe {
+  uint32_t w[NW];
+};
+
+struct G1 {
+  Fe x, y, z;
+};
+
+inline Field field_from_host(const uint32_t* words) {
+  Field f;
+  for (int i = 0; i < NW; ++i) f.p[i] = words[i];
+  f.n0 = words[NW];
+  return f;
+}
+
+// ---- layout conversion: 16 x int64 16-bit limbs <-> 8 x u32 words ---------
+
+__device__ __forceinline__ Fe load_fe(const int64_t* src) {
+  const longlong2* s = reinterpret_cast<const longlong2*>(src);
+  Fe r;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) {
+    longlong2 v = s[k];
+    r.w[k] = static_cast<uint32_t>(v.x) | (static_cast<uint32_t>(v.y) << 16);
+  }
+  return r;
+}
+
+__device__ __forceinline__ void store_fe(int64_t* dst, const Fe& a) {
+  longlong2* d = reinterpret_cast<longlong2*>(dst);
+#pragma unroll
+  for (int k = 0; k < NW; ++k) {
+    longlong2 v;
+    v.x = static_cast<long long>(a.w[k] & 0xFFFFu);
+    v.y = static_cast<long long>(a.w[k] >> 16);
+    d[k] = v;
+  }
+}
+
+// ---- 256-bit add / sub with carry-flag PTX ---------------------------------
+
+// r = a + b; returns the carry out (0 or 1).
+__device__ __forceinline__ uint32_t add_words(uint32_t r[NW], const uint32_t a[NW],
+                                              const uint32_t b[NW]) {
+  uint32_t c;
+  const uint32_t zero = 0;
+  asm("add.cc.u32 %0, %9, %17;\n\t"
+      "addc.cc.u32 %1, %10, %18;\n\t"
+      "addc.cc.u32 %2, %11, %19;\n\t"
+      "addc.cc.u32 %3, %12, %20;\n\t"
+      "addc.cc.u32 %4, %13, %21;\n\t"
+      "addc.cc.u32 %5, %14, %22;\n\t"
+      "addc.cc.u32 %6, %15, %23;\n\t"
+      "addc.cc.u32 %7, %16, %24;\n\t"
+      "addc.u32 %8, %25, %25;"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]), "=r"(r[4]), "=r"(r[5]),
+        "=r"(r[6]), "=r"(r[7]), "=r"(c)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]), "r"(a[6]),
+        "r"(a[7]), "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]), "r"(b[4]), "r"(b[5]),
+        "r"(b[6]), "r"(b[7]), "r"(zero));
+  return c;
+}
+
+// r = a - b; returns the borrow out (0 or 1).
+__device__ __forceinline__ uint32_t sub_words(uint32_t r[NW], const uint32_t a[NW],
+                                              const uint32_t b[NW]) {
+  uint32_t bw;
+  const uint32_t zero = 0;
+  asm("sub.cc.u32 %0, %9, %17;\n\t"
+      "subc.cc.u32 %1, %10, %18;\n\t"
+      "subc.cc.u32 %2, %11, %19;\n\t"
+      "subc.cc.u32 %3, %12, %20;\n\t"
+      "subc.cc.u32 %4, %13, %21;\n\t"
+      "subc.cc.u32 %5, %14, %22;\n\t"
+      "subc.cc.u32 %6, %15, %23;\n\t"
+      "subc.cc.u32 %7, %16, %24;\n\t"
+      "subc.u32 %8, %25, %25;"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]), "=r"(r[4]), "=r"(r[5]),
+        "=r"(r[6]), "=r"(r[7]), "=r"(bw)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]), "r"(a[6]),
+        "r"(a[7]), "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]), "r"(b[4]), "r"(b[5]),
+        "r"(b[6]), "r"(b[7]), "r"(zero));
+  return bw & 1u;  // 0 - 0 - borrow: all ones when a borrow came out
+}
+
+// ---- modular add / sub (field_pallas.tadd / tsub) --------------------------
+
+// (a + b), minus p when the sum carried out or is >= p.
+__device__ __forceinline__ Fe fadd(const Fe& a, const Fe& b, const Field& f) {
+  Fe s, d;
+  const uint32_t carry = add_words(s.w, a.w, b.w);
+  const uint32_t borrow = sub_words(d.w, s.w, f.p);
+  return (carry || !borrow) ? d : s;
+}
+
+// (a - b), plus p when it borrowed (the carry of that add is dropped).
+__device__ __forceinline__ Fe fsub(const Fe& a, const Fe& b, const Field& f) {
+  Fe d, c;
+  const uint32_t borrow = sub_words(d.w, a.w, b.w);
+  add_words(c.w, d.w, f.p);
+  return borrow ? c : d;
+}
+
+// ---- Montgomery product (field_pallas.tmul), CIOS on 32-bit words ----------
+
+// a * b * 2^-256 mod p.  Each row adds a*b[i] and then m*p with
+// m = t[0] * n0, which clears the low word; the sum of the m's is the unique
+// m < 2^256 of the SOS form in ops/field.py, so the result is the same
+// integer (a*b + m*p) / 2^256 < 2^256 + p, reduced by one conditional
+// subtract.  The row products are 32x32->64 multiply-adds (IMAD.WIDE).
+__device__ __forceinline__ Fe fmul(const Fe& a, const Fe& b, const Field& f) {
+  uint32_t t[NW + 2];
+#pragma unroll
+  for (int j = 0; j < NW + 2; ++j) t[j] = 0;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {
+      c = static_cast<uint64_t>(a.w[j]) * b.w[i] + t[j] + (c >> 32);
+      t[j] = static_cast<uint32_t>(c);
+    }
+    uint64_t s = static_cast<uint64_t>(t[NW]) + (c >> 32);
+    t[NW] = static_cast<uint32_t>(s);
+    t[NW + 1] = static_cast<uint32_t>(s >> 32);
+
+    const uint32_t m = t[0] * f.n0;
+    c = static_cast<uint64_t>(m) * f.p[0] + t[0];
+#pragma unroll
+    for (int j = 1; j < NW; ++j) {
+      c = static_cast<uint64_t>(m) * f.p[j] + t[j] + (c >> 32);
+      t[j - 1] = static_cast<uint32_t>(c);
+    }
+    s = static_cast<uint64_t>(t[NW]) + (c >> 32);
+    t[NW - 1] = static_cast<uint32_t>(s);
+    t[NW] = t[NW + 1] + static_cast<uint32_t>(s >> 32);
+  }
+  Fe r, d;
+#pragma unroll
+  for (int j = 0; j < NW; ++j) r.w[j] = t[j];
+  const uint32_t borrow = sub_words(d.w, r.w, f.p);
+  return (t[NW] || !borrow) ? d : r;
+}
+
+__device__ __forceinline__ Fe fzero() {
+  Fe r;
+#pragma unroll
+  for (int j = 0; j < NW; ++j) r.w[j] = 0;
+  return r;
+}
+
+// 9 * t as the add chain 2t, 4t, 8t, 8t + t (b3 = 3 * b, b = 3).
+__device__ __forceinline__ Fe mul_b3(const Fe& t, const Field& f) {
+  const Fe t2 = fadd(t, t, f);
+  const Fe t4 = fadd(t2, t2, f);
+  const Fe t8 = fadd(t4, t4, f);
+  return fadd(t8, t, f);
+}
+
+// ---- complete G1 formulas (Renes-Costello-Batina 2015, a = 0, b3 = 9) ------
+
+// Algorithm 7, same operations and operands as curve_pallas._add_core.
+__device__ __forceinline__ G1 g1_add(const G1& p, const G1& q, const Field& f) {
+  Fe t0 = fmul(p.x, q.x, f);
+  Fe t1 = fmul(p.y, q.y, f);
+  Fe t2 = fmul(p.z, q.z, f);
+  Fe t3 = fmul(fadd(p.x, p.y, f), fadd(q.x, q.y, f), f);
+  t3 = fsub(t3, fadd(t0, t1, f), f);
+  Fe t4 = fmul(fadd(p.y, p.z, f), fadd(q.y, q.z, f), f);
+  t4 = fsub(t4, fadd(t1, t2, f), f);
+  Fe x3 = fmul(fadd(p.x, p.z, f), fadd(q.x, q.z, f), f);
+  Fe y3 = fsub(x3, fadd(t0, t2, f), f);
+  x3 = fadd(t0, t0, f);
+  t0 = fadd(x3, t0, f);
+  t2 = mul_b3(t2, f);
+  Fe z3 = fadd(t1, t2, f);
+  t1 = fsub(t1, t2, f);
+  y3 = mul_b3(y3, f);
+  G1 r;
+  r.x = fsub(fmul(t3, t1, f), fmul(t4, y3, f), f);
+  r.y = fadd(fmul(t1, z3, f), fmul(y3, t0, f), f);
+  r.z = fadd(fmul(z3, t4, f), fmul(t0, t3, f), f);
+  return r;
+}
+
+// Algorithm 9, same operations and operands as curve_pallas._dbl_core.
+__device__ __forceinline__ G1 g1_double(const G1& p, const Field& f) {
+  Fe t0 = fmul(p.y, p.y, f);
+  Fe z3 = fadd(t0, t0, f);
+  z3 = fadd(z3, z3, f);
+  z3 = fadd(z3, z3, f);
+  Fe t1 = fmul(p.y, p.z, f);
+  Fe t2 = mul_b3(fmul(p.z, p.z, f), f);
+  Fe x3 = fmul(t2, z3, f);
+  Fe y3 = fadd(t0, t2, f);
+  z3 = fmul(t1, z3, f);
+  t1 = fadd(t2, t2, f);
+  t2 = fadd(t1, t2, f);
+  t0 = fsub(t0, t2, f);
+  y3 = fadd(fmul(t0, y3, f), x3, f);
+  t1 = fmul(p.x, p.y, f);
+  x3 = fmul(t0, t1, f);
+  G1 r;
+  r.x = fadd(x3, x3, f);
+  r.y = y3;
+  r.z = z3;
+  return r;
+}
+
+inline int grid_for(int64_t n, int block) {
+  return static_cast<int>((n + block - 1) / block);
+}
+
+}  // namespace svtpu

@@ -1,0 +1,81 @@
+// K4: batched small MSM by point scan, one accumulator per proof.
+//
+// Replaces snark_verifier_tpu/ops/msm_pallas.py _scan_kernel_body (_scan_call,
+// driven by msm_batched_fused).  The TPU kernel runs a sequential grid
+// (b_block, window, point) with the accumulator block resident in VMEM; on
+// Hopper the grid's sequential axes become loops inside one thread, and the
+// batch axis becomes the thread index: thread b owns proof b's accumulator in
+// registers for the whole MSM.
+//
+// Per window, most significant first: 4 doublings (skipped for the first
+// window), then for each of the n points select T[|d|] from the 9-entry table
+// T_k = k * P_i, negate y when d < 0, and add with the complete formula.  The
+// very first step assigns instead of adding.  Same operations in the same
+// order as the TPU kernel, so the output triple matches it limb for limb for
+// the same tables.
+//
+// Bound on the H100: latency.  At B = 1820 proofs the launch is 1820 threads,
+// about 57 warps on a 132-SM card, and each thread runs a serial chain of
+// 64 * (n + 4) point operations.  The block size is a launch parameter
+// (chip_smoke.py sweeps it); splitting one proof's scan over several threads
+// (by points or windows) is the next step.
+//
+// Layouts: table (9, 3, n, B, 16) int64 (entry k, coordinate, point, proof,
+// limb); digits (B, n, nwin) int64 signed windows in [-8, 8], least
+// significant first; outputs three (B, 16) coordinate tensors.
+#include "bn254.cuh"
+
+namespace {
+
+__global__ void msm_scan_kernel(const int64_t* __restrict__ table,
+                                const int64_t* __restrict__ digits, int64_t* __restrict__ ox,
+                                int64_t* __restrict__ oy, int64_t* __restrict__ oz,
+                                int64_t batch, int npoints, int nwin, svtpu::Field f) {
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (b >= batch) return;
+  const int64_t coord_stride = static_cast<int64_t>(npoints) * batch * 16;  // next coordinate
+  const int64_t entry_stride = 3 * coord_stride;                           // next table entry
+  const int64_t* dig = digits + b * npoints * nwin;
+
+  svtpu::G1 acc;
+  bool first = true;
+  for (int w = nwin - 1; w >= 0; --w) {
+    if (!first) {
+      for (int k = 0; k < 4; ++k) acc = svtpu::g1_double(acc, f);
+    }
+    for (int i = 0; i < npoints; ++i) {
+      const int64_t d = dig[i * nwin + w];
+      const int64_t k = d < 0 ? -d : d;
+      const int64_t* e = table + k * entry_stride + (static_cast<int64_t>(i) * batch + b) * 16;
+      svtpu::G1 pt;
+      pt.x = svtpu::load_fe(e);
+      pt.y = svtpu::load_fe(e + coord_stride);
+      pt.z = svtpu::load_fe(e + 2 * coord_stride);
+      if (d < 0) pt.y = svtpu::fsub(svtpu::fzero(), pt.y, f);
+      if (first) {
+        acc = pt;
+        first = false;
+      } else {
+        acc = svtpu::g1_add(acc, pt, f);
+      }
+    }
+  }
+  svtpu::store_fe(ox + 16 * b, acc.x);
+  svtpu::store_fe(oy + 16 * b, acc.y);
+  svtpu::store_fe(oz + 16 * b, acc.z);
+}
+
+}  // namespace
+
+extern "C" int svtpu_msm_scan(const void* table, const void* digits, void* ox, void* oy,
+                              void* oz, int64_t batch, int npoints, int nwin,
+                              const void* field_words, int block, void* stream) {
+  if (batch <= 0) return 0;
+  const svtpu::Field f = svtpu::field_from_host(static_cast<const uint32_t*>(field_words));
+  msm_scan_kernel<<<svtpu::grid_for(batch, block), block, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(table), static_cast<const int64_t*>(digits),
+      static_cast<int64_t*>(ox), static_cast<int64_t*>(oy), static_cast<int64_t*>(oz), batch,
+      npoints, nwin, f);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,104 @@
+"""Batched device verification: the loader-generic succinct PLONK verifier,
+specialised to one protocol and run over a batch of proofs.
+
+Counterpart of ``snark_verifier_tpu/parallel/batch.py``.  Where the JAX
+package traces ``build_verifier``'s function into one XLA computation, the
+port runs it eagerly: one pass of the verifier over (B, ...) tensors, with
+the hand-written kernels underneath.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from snark_verifier_tpu.ops.limbs import ints_to_limbs, limbs_to_int
+from snark_verifier_tpu.verifier.plonk import PlonkSuccinctVerifier
+from snark_verifier_tpu_torch.loader.torch_loader import TorchLoader
+from snark_verifier_tpu_torch.ops import field as F
+from snark_verifier_tpu_torch.system.halo2.transcript_torch import TorchEvmTranscript
+
+FR = F.FR
+
+
+def build_verifier(protocol, As, svk, device="cpu", decide_dk=None, transcript_kind: str = "evm"):
+    """Returns ``fn(proof_bytes, instances) -> result dict``.
+
+    proof_bytes: (B, L) int64 byte values; instances: (B, total, 16)
+    canonical Fr limbs (columns flattened in order); both on ``device``.
+    Output: ``lhs_x, lhs_y, rhs_x, rhs_y`` (B, 16) canonical Fq limbs of the
+    accumulator pair (a leading axis per accumulator when there are several),
+    and ``ok`` (B,), the per-proof validity mask."""
+    if decide_dk is not None:
+        raise NotImplementedError(
+            "the pairing decide is the next slice: ROADMAP.md section 1, item 1"
+        )
+    if transcript_kind != "evm":
+        raise NotImplementedError(
+            "the Poseidon transcript is not ported yet: ROADMAP.md section 1, item 2"
+        )
+    verifier = PlonkSuccinctVerifier(As)
+    num_instance = protocol.num_instance
+    device = torch.device(device)
+
+    def verify_fn(proof_bytes, instances):
+        if proof_bytes.device != device or instances.device != device:
+            raise ValueError(f"inputs must be on {device}")
+        batch_shape = proof_bytes.shape[:-1]
+        loader = TorchLoader(batch_shape, device)
+        loaded = protocol.loaded(loader)
+
+        cols, off = [], 0
+        for n in num_instance:
+            cols.append([loader.scalar_from_mont(F.to_mont(instances[..., off + i, :], FR)) for i in range(n)])
+            off += n
+
+        transcript = TorchEvmTranscript(proof_bytes, loader)
+        proof = verifier.read_proof(svk, loaded, cols, transcript)
+        accumulators = verifier.verify(svk, loaded, cols, proof)
+
+        def coords(acc):
+            lhs = acc.lhs.value.as_affine()
+            rhs = acc.rhs.value.as_affine()
+            return {
+                "lhs_x": F.from_mont(lhs.x, F.FQ),
+                "lhs_y": F.from_mont(lhs.y, F.FQ),
+                "rhs_x": F.from_mont(rhs.x, F.FQ),
+                "rhs_y": F.from_mont(rhs.y, F.FQ),
+            }
+
+        if len(accumulators) == 1:
+            out = coords(accumulators[0])
+        else:
+            per_acc = [coords(a) for a in accumulators]
+            full = tuple(batch_shape) + (F.NLIMB,)
+            out = {k: torch.stack([c[k].expand(full) for c in per_acc]) for k in per_acc[0]}
+        out["ok"] = loader.ok
+        return out
+
+    return verify_fn
+
+
+def pack_proofs(proof_bytes_list, device="cpu"):
+    """Host: list of equal-length proof byte strings -> (B, L) int64 tensor."""
+    L = len(proof_bytes_list[0])
+    if any(len(p) != L for p in proof_bytes_list):
+        raise ValueError("proofs must have equal length")
+    arr = np.frombuffer(b"".join(proof_bytes_list), np.uint8).reshape(len(proof_bytes_list), L)
+    return torch.as_tensor(arr.astype(np.int64), device=device)
+
+
+def pack_instances(instances_list, device="cpu"):
+    """Host: list (per proof) of per-column int lists -> (B, total, 16) int64."""
+    flat = [[v for col in ins for v in col] for ins in instances_list]
+    arr = np.stack([ints_to_limbs(row) for row in flat]).astype(np.int64)
+    return torch.as_tensor(arr, device=device)
+
+
+def decode_accumulator(result, index=0):
+    """Host: result dict -> ((lhs_x, lhs_y), (rhs_x, rhs_y)) affine ints of
+    one batch element."""
+    def coord(key):
+        return limbs_to_int(result[key][index].cpu().numpy())
+
+    return (coord("lhs_x"), coord("lhs_y")), (coord("rhs_x"), coord("rhs_y"))

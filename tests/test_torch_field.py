@@ -1,0 +1,149 @@
+"""The port's field ops (snark_verifier_tpu_torch/ops/field.py, field_cuda.py)
+against the JAX package's ops/field.py and field_pallas.py on the CPU.
+
+Integer arithmetic: every comparison is exact (tolerance zero).  Inputs are
+made from a numpy seed and handed to both sides as numpy arrays.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from snark_verifier_tpu.ops import field as JF
+from snark_verifier_tpu.ops import field_pallas as FP
+from snark_verifier_tpu.ops.limbs import NLIMB, int_to_limbs
+from snark_verifier_tpu_torch.ops import field as F
+from snark_verifier_tpu_torch.ops import field_cuda as FK
+from snark_verifier_tpu_torch.ops.convert import limbs_to_tensor, tensor_to_limbs
+
+SPECS = [(F.FQ, JF.FQ), (F.FR, JF.FR)]
+IDS = ["Fq", "Fr"]
+
+
+def rand_ints(seed, modulus, n):
+    rng = np.random.default_rng(seed)
+    return [int.from_bytes(rng.bytes(32), "little") % modulus for _ in range(n)]
+
+
+def edge_ints(modulus):
+    return [0, 1, 2, modulus - 1, modulus - 2, 2**16 - 1, 2**16, (1 << 255) % modulus]
+
+
+def both(spec, values):
+    """Montgomery limbs of ``values`` as (numpy for JAX, tensor for the port)."""
+    arr = spec.encode(values)
+    return arr, limbs_to_tensor(arr)
+
+
+def assert_same(got_tensor, want_jax):
+    np.testing.assert_array_equal(tensor_to_limbs(got_tensor), np.asarray(want_jax))
+
+
+@pytest.mark.parametrize("specs", SPECS, ids=IDS)
+def test_spec_constants_match_jax(specs):
+    spec, jspec = specs
+    np.testing.assert_array_equal(spec.mod_limbs, jspec.mod_limbs)
+    np.testing.assert_array_equal(spec.nprime_limbs, jspec.nprime_limbs)
+    assert (spec.r_mod, spec.r2, spec.r3) == (jspec.r_mod, jspec.r2, jspec.r3)
+    # the kernels' word-level constants: p as 8 words and n0 = -p^-1 mod 2^32
+    words = [int(w) for w in spec.kernel_words]
+    assert sum(w << (32 * i) for i, w in enumerate(words[:8])) == spec.modulus
+    assert (spec.modulus * words[8]) % (1 << 32) == (1 << 32) - 1
+
+
+@pytest.mark.parametrize("specs", SPECS, ids=IDS)
+def test_add_sub_neg_match_jax(specs):
+    spec, jspec = specs
+    a_vals = rand_ints(1, spec.modulus, 8) + edge_ints(spec.modulus)
+    b_vals = (rand_ints(2, spec.modulus, 8) + edge_ints(spec.modulus))[::-1]
+    (ja, ta), (jb, tb) = both(spec, a_vals), both(spec, b_vals)
+    assert_same(F.add(ta, tb, spec), JF.add(ja, jb, jspec))
+    assert_same(F.sub(ta, tb, spec), JF.sub(ja, jb, jspec))
+    assert_same(F.neg(ta, spec), JF.neg(ja, jspec))
+    assert list(spec.decode(F.add(ta, tb, spec))) == [(x + y) % spec.modulus for x, y in zip(a_vals, b_vals)]
+
+
+@pytest.mark.parametrize("specs", SPECS, ids=IDS)
+def test_mont_mul_matches_jax(specs):
+    spec, jspec = specs
+    edge = edge_ints(spec.modulus)
+    a_vals = [x for x in edge for _ in range(4)]
+    b_vals = [y for _ in range(8) for y in edge[:4]]
+    (ja, ta), (jb, tb) = both(spec, a_vals), both(spec, b_vals)
+    assert_same(F.mont_mul(ta, tb, spec), JF.mont_mul(ja, jb, jspec))
+    assert list(spec.decode(F.mont_mul(ta, tb, spec))) == [x * y % spec.modulus for x, y in zip(a_vals, b_vals)]
+    # operands above p (any 256-bit value): the same integer arithmetic, so
+    # still the same limbs
+    rng = np.random.default_rng(3)
+    wild_a = rng.integers(0, 1 << 16, (32, NLIMB)).astype(np.uint32)
+    wild_b = rng.integers(0, 1 << 16, (32, NLIMB)).astype(np.uint32)
+    wild_a[0] = 0xFFFF
+    assert_same(F.mont_mul(limbs_to_tensor(wild_a), limbs_to_tensor(wild_b), spec), JF.mont_mul(wild_a, wild_b, jspec))
+    # leading batch dims and broadcasting
+    assert_same(F.mont_mul(ta.reshape(4, 8, NLIMB), tb[:8], spec), JF.mont_mul(ja.reshape(4, 8, NLIMB), jb[:8], jspec))
+
+
+def test_mont_mul_plain_matches_pallas_kernel(monkeypatch):
+    """The plain version of K1 against the Pallas kernel body it replaces,
+    run by the Pallas interpreter on a small lane tier."""
+    monkeypatch.setattr(FP, "LANES", 128)
+    monkeypatch.setattr(FP, "FIXED_TOTAL", 256)
+    FP.mont_mul_pallas.clear_cache()
+    try:
+        vals = edge_ints(F.FQ.modulus)
+        a_vals = [x for x in vals for _ in vals] + rand_ints(4, F.FQ.modulus, 36)
+        b_vals = [y for _ in vals for y in vals] + rand_ints(5, F.FQ.modulus, 36)
+        (ja, ta), (jb, tb) = both(F.FQ, a_vals), both(F.FQ, b_vals)
+        want = FP.mont_mul_pallas(ja, jb, JF.FQ)
+        assert_same(FK.mont_mul_plain(ta, tb, F.FQ), want)
+    finally:
+        FP.mont_mul_pallas.clear_cache()
+
+
+def test_to_from_mont_match_jax():
+    spec = F.FR
+    vals = rand_ints(6, spec.modulus, 8)
+    canon = np.stack([int_to_limbs(v) for v in vals])
+    mont = F.to_mont(limbs_to_tensor(canon), spec)
+    assert_same(mont, JF.to_mont(canon, JF.FR))
+    assert_same(F.from_mont(mont, spec), JF.from_mont(np.asarray(JF.to_mont(canon, JF.FR)), JF.FR))
+    np.testing.assert_array_equal(tensor_to_limbs(F.from_mont(mont, spec)), canon)
+
+
+@pytest.mark.parametrize("specs", SPECS, ids=IDS)
+def test_pow_inv_match_jax(specs):
+    spec, jspec = specs
+    vals = rand_ints(7, spec.modulus, 4)
+    ja, ta = both(spec, vals)
+    assert_same(F.pow_const(ta, 65537, spec), JF.pow_const(ja, 65537, jspec))
+    assert_same(F.inv(ta, spec), JF.inv(ja, jspec))
+    zero_j, zero_t = both(spec, [0])
+    assert_same(F.inv(zero_t, spec), JF.inv(zero_j, jspec))
+
+
+def test_batch_inv_matches_jax():
+    spec = F.FR
+    vals = rand_ints(8, spec.modulus, 9) + [0, 1, spec.modulus - 1]
+    ja, ta = both(spec, vals)
+    assert_same(F.batch_inv(ta, spec), JF.batch_inv(ja, JF.FR))
+    ja2, ta2 = np.stack([ja, ja], axis=1), torch.stack([ta, ta], dim=1)  # (12, 2, 16)
+    assert_same(F.batch_inv(ta2, spec, axis=0), JF.batch_inv(ja2, JF.FR, 0))
+
+
+def test_constants_selects_and_sums_match_jax():
+    spec, jspec = F.FR, JF.FR
+    vals = rand_ints(9, spec.modulus, 6) + [0, 0]
+    other = vals[:4] + rand_ints(10, spec.modulus, 4)
+    (ja, ta), (jb, tb) = both(spec, vals), both(spec, other)
+    assert_same(F.ones((3,), spec, "cpu"), JF.ones((3,), jspec))
+    assert_same(F.zeros((3,), "cpu"), JF.zeros((3,)))
+    assert_same(F.constant(12345, spec, (2,)), JF.constant(12345, jspec, (2,)))
+    assert_same(F.constant(-1, spec), JF.constant(-1, jspec))
+    np.testing.assert_array_equal(F.is_zero(ta).numpy(), np.asarray(JF.is_zero(ja)))
+    np.testing.assert_array_equal(F.eq(ta, tb).numpy(), np.asarray(JF.eq(ja, jb)))
+    cond = np.arange(8) % 3 == 0
+    assert_same(F.select(torch.as_tensor(cond), ta, tb), JF.select(cond, ja, jb))
+    assert_same(F.mont_sqr(ta, spec), JF.mont_sqr(ja, jspec))
+    pairs_t = [(ta, tb), (tb, tb), (ta, ta)]
+    pairs_j = [(ja, jb), (jb, jb), (ja, ja)]
+    assert_same(F.sum_products(pairs_t, spec), JF.sum_products(pairs_j, jspec))

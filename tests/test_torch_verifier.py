@@ -1,0 +1,102 @@
+"""The port's batched succinct verifier (snark_verifier_tpu_torch/parallel/
+batch.py over TorchLoader and TorchEvmTranscript) against the JAX package's
+build_verifier and the native (python-int) verifier on the CPU.
+
+K = 4 and B = 2 proofs: the shapes of tests/test_verifier_jax.py, so the
+persistent JAX compile cache serves the JAX side.  Accumulators are integers
+and compared exactly.
+"""
+
+import jax
+import numpy as np
+import pytest
+
+from snark_verifier_tpu.parallel import batch as JB
+from snark_verifier_tpu.system.halo2.prover import create_proof
+from snark_verifier_tpu_torch import entry as E
+from snark_verifier_tpu_torch.parallel.batch import build_verifier, decode_accumulator, pack_instances, pack_proofs
+
+K = 4
+INSTANCES = [[[12345]], [[999]]]
+KEYS = ("lhs_x", "lhs_y", "rhs_x", "rhs_y", "ok")
+
+
+def fixture_for(scheme):
+    """The K = 4 circuit with proofs of INSTANCES (entry.fixture numbers its
+    instances from 10000, so prove these here)."""
+    fx = E.fixture(K, scheme, n_unique=1)
+    proofs = tuple(create_proof(fx.pk, ins, scheme) for ins in INSTANCES)
+    return E.Fixture(K, scheme, fx.srs, fx.protocol, fx.pk, tuple(INSTANCES), proofs)
+
+
+@pytest.fixture(scope="module")
+def jax_gwc():
+    fx = fixture_for("gwc")
+    return fx, jax.jit(JB.build_verifier(fx.protocol, fx.As, fx.svk))
+
+
+def assert_matches_jax(out, jax_out):
+    for key in KEYS:
+        np.testing.assert_array_equal(out[key].numpy(), np.asarray(jax_out[key]).astype(out[key].numpy().dtype))
+
+
+@pytest.mark.parametrize("scheme", ["gwc", "shplonk"])
+def test_port_matches_jax_and_native(jax_gwc, scheme):
+    if scheme == "gwc":
+        fx, jax_fn = jax_gwc
+    else:
+        fx = fixture_for(scheme)
+        jax_fn = jax.jit(JB.build_verifier(fx.protocol, fx.As, fx.svk))
+    fn = build_verifier(fx.protocol, fx.As, fx.svk, device="cpu")
+    out = fn(pack_proofs(fx.proofs), pack_instances(fx.instances))
+    assert_matches_jax(out, jax_fn(JB.pack_proofs(fx.proofs), JB.pack_instances(fx.instances)))
+    assert out["ok"].tolist() == [True, True]
+    for i, ins in enumerate(fx.instances):
+        assert decode_accumulator(out, i) == E.native_accumulator(fx, fx.proofs[i], ins)
+
+
+def test_corrupted_proof_and_wrong_instance(jax_gwc):
+    """A corrupted commitment clears ``ok`` in the port and in JAX alike (its
+    accumulator is not a group element sum, so the two MSM algorithms may
+    disagree on it); a wrong instance keeps ``ok`` (only the decide can
+    reject it) and gives the native verifier's accumulator for that
+    instance, which the host pairing oracle rejects."""
+    fx, jax_fn = jax_gwc
+    wrong = [[INSTANCES[0][0][0] + 1]]
+    proofs = [fx.proofs[0], E.corrupt(fx.proofs[0]), fx.proofs[0]]
+    instances = [fx.instances[0], fx.instances[0], wrong]
+    fn = build_verifier(fx.protocol, fx.As, fx.svk, device="cpu")
+    out = fn(pack_proofs(proofs), pack_instances(instances))
+    jax_out = jax_fn(JB.pack_proofs(proofs[:2]), JB.pack_instances(instances[:2]))
+    assert_matches_jax({k: v[:1] for k, v in out.items()}, {k: v[:1] for k, v in jax_out.items()})
+    assert out["ok"].tolist() == [True, False, True]
+    assert np.asarray(jax_out["ok"]).tolist() == [True, False]
+    good, bad_instance = decode_accumulator(out, 0), decode_accumulator(out, 2)
+    assert bad_instance == E.native_accumulator(fx, fx.proofs[0], wrong)
+    assert E.host_decide(fx, *good)
+    assert not E.host_decide(fx, *bad_instance)
+
+
+def test_decide_and_poseidon_are_not_ported_yet():
+    fx = E.fixture(K, "gwc", n_unique=1)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_verifier(fx.protocol, fx.As, fx.svk, decide_dk=fx.srs.decider_key())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_verifier(fx.protocol, fx.As, fx.svk, transcript_kind="poseidon")
+
+
+def test_ec_point_from_limbs_decodes_and_checks_the_curve():
+    """The accumulator-in-instances path: 4 x 68-bit Fr limbs per coordinate
+    compose to the Fq point, and an off-curve point clears ``ok``."""
+    from snark_verifier_tpu.util import bn254
+    from snark_verifier_tpu_torch.loader.torch_loader import TorchLoader
+    from snark_verifier_tpu_torch.ops.field import FQ
+
+    x, y = bn254.g1_mul(bn254.G1_GEN, 12345)
+    for y_value, ok in ((y, True), (y + 1, False)):
+        loader = TorchLoader((2,), "cpu")
+        limbs = [(v >> (68 * i)) & ((1 << 68) - 1) for v in (x, y_value) for i in range(4)]
+        point = loader.ec_point_from_limbs([loader.load_const(v) for v in limbs], 4, 68).value
+        assert list(FQ.decode(point.x)) == [x, x]
+        assert list(FQ.decode(point.y)) == [y_value, y_value]
+        assert loader.ok.tolist() == [ok, ok]
