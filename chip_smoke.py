@@ -3,24 +3,39 @@
 
 Drives the port's main path, BASELINE config 1 (a batched succinct
 PLONK+KZG GWC verify of the k=8 standard-plonk proof with the Keccak
-transcript, 1820 proofs), through ``snark_verifier_tpu_torch.entry``:
+transcript, 1820 proofs, then the batch decide of those proofs), through
+``snark_verifier_tpu_torch.entry`` and ``parallel.batch``:
 
 1. probe: torch, CUDA, and the card's name and power limit;
-2. build: compile the four kernels (csrc/*.cu) for sm_90a;
+2. build: compile the seven kernels (csrc/*.cu) for sm_90a, one nvcc per
+   source in parallel, and print ptxas's registers and spills;
 3. kernels: each kernel against its plain PyTorch version on the card, bit
    for bit, at the main path's shapes, with both times (CUDA events, median
-   of 5 runs after a warm-up), and K4 at 32 to 256 threads per block;
+   of 5 runs after a warm-up) and the least time the card could take
+   (bound); K4 at 32 to 256 threads per block;
 4. slice: 1820 proofs (4 unique ones tiled, 2 rows with a corrupted
-   commitment, 1 row with a wrong instance); accumulators equal the native
-   verifier's, ``ok`` False exactly on the corrupted rows, every kernel
-   launched by the run, and the host pairing oracle decides a good and the
-   wrong-instance accumulator; warm time, proofs/s, peak memory, and a
-   torch.profiler breakdown of one warm verify;
-5. SHPLONK through the same code at 64 proofs.
+   commitment, 1 row with a wrong instance) from the data-file fixture;
+   accumulators equal the native verifier's, ``ok`` False exactly on the
+   corrupted rows, K1-K4 launched by the run, and the host pairing oracle
+   decides a good and the wrong-instance accumulator; warm time, proofs/s,
+   peak memory, and a torch.profiler breakdown of one warm verify;
+5. SHPLONK through the same code at 64 proofs;
+6. decide: ``entry.decide_entry`` verifies the 1820-proof batch and gives
+   its decider (``build_batch_decider``), accumulators and seeded fold
+   scalars; the fold by two MSMs and one pairing check is True on them and
+   False with the slice's wrong-instance accumulator in one row; K1, K2, K5, K6 and K7 launched by it; warm
+   time, verified proofs/s (verify + decide), peak memory;
+   ``build_verifier(decide_dk=...)`` on 8 proofs equal to the host oracle;
+7. large MSM: ``msm_serial`` at 2^16 (window 8) and 2^20 (window 11,
+   signed) points, exact against the oracle; points/s and peak memory.
 
 Every failure raises, so the exit code is non-zero.  The last stdout line
 is ``{"ok": true, "device": {...}}``; before it, a JSON line with the
-per-kernel results and the ``nvidia-smi`` name and power limit line.
+per-kernel results (``path_device_ms``: the kernel's mean device time per
+launch in the profiled warm run of the path that counts its launches;
+``bound_with_floor_ms``: ``bound_ms`` raised to the least device time of
+any one kernel launch in those profiles) and the ``nvidia-smi`` name and
+power limit line.
 Usage: ``python3 chip_smoke.py`` (needs one CUDA card; exits non-zero
 without one).
 """
@@ -38,12 +53,33 @@ SEED = 20261016
 B = 1820  # proofs in the main path's batch
 N_TERMS = 18  # MSM terms per proof at k = 8
 SHPLONK_BATCH = 64
+DECIDE_PROOFS = 8  # build_verifier(decide_dk=...) batch
+MSM_POOL = 64  # distinct points of the large MSM, tiled
+WINDOW_DBLS = 4  # doublings per window of K4 (4-bit windows)
+MSM_CASES = ((16, 8, False), (20, 11, True))  # large MSM: (log2 points, window, signed)
 KERNELS = {  # name -> (source, TPU kernel replaced)
     "mont_mul": ("snark_verifier_tpu_torch/csrc/field.cu", "snark_verifier_tpu/ops/field_pallas.py:270"),
     "g1_add": ("snark_verifier_tpu_torch/csrc/curve.cu", "snark_verifier_tpu/ops/curve_pallas.py:97"),
     "g1_double": ("snark_verifier_tpu_torch/csrc/curve.cu", "snark_verifier_tpu/ops/curve_pallas.py:106"),
     "msm_scan": ("snark_verifier_tpu_torch/csrc/msm.cu", "snark_verifier_tpu/ops/msm_pallas.py:139"),
+    "g1_add_select": ("snark_verifier_tpu_torch/csrc/curve.cu", "snark_verifier_tpu/ops/curve_pallas.py:113"),
+    "horner_combine": ("snark_verifier_tpu_torch/csrc/msm.cu", "snark_verifier_tpu/ops/curve_pallas.py:348"),
+    "fq12_mul": ("snark_verifier_tpu_torch/csrc/tower.cu", "snark_verifier_tpu/ops/tower_pallas.py:97"),
 }
+SLICE_KERNELS = ("mont_mul", "g1_add", "g1_double", "msm_scan")
+DECIDE_KERNELS = ("mont_mul", "g1_add", "g1_add_select", "horner_combine", "fq12_mul")
+
+# The card's peak rates for the bound (NVIDIA H100 SXM data sheet and
+# Hopper white paper): HBM3 bandwidth, and 32-bit integer multiply-adds:
+# 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock.
+HBM_BYTES_PER_S = 3.35e12
+INT32_MULS_PER_S = 132 * 64 * 1.98e9
+# 32-bit multiply instructions per Montgomery product (CIOS on 8 words):
+# 64 a*b and 64 m*p products, each a 32 x 32 -> 64 bit multiply (lo and hi
+# halves: 2 instructions), and 8 m = t0 * n0 (low half only).
+MULS_PER_MONT = 2 * (64 + 64) + 8
+FE_BYTES = 32  # one field element (or one scalar's 64 signed 4-bit digits) as the function needs it
+MONT_PER = {"add": 12, "double": 8, "fq12": 54}  # Montgomery products per operation
 
 
 def log(msg: str) -> None:
@@ -71,6 +107,16 @@ def cuda_ms(torch, fn, reps: int = 5) -> float:
 
 def max_abs_err(torch, got, want) -> float:
     return max(float((g - w).abs().max()) for g, w in zip(got, want))
+
+
+def bound(nbytes: int, mont_products: int) -> dict:
+    """The least time the card could take: the larger of the bytes the
+    function must move (inputs read once, outputs written once) over HBM
+    bandwidth and its 32-bit multiply instructions over the INT32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = mont_products * MULS_PER_MONT / INT32_MULS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
 
 
 def phase_kernels(torch, dev, rng):
@@ -104,7 +150,8 @@ def phase_kernels(torch, dev, rng):
                             cuda_ms(torch, lambda: FK.mont_mul_plain(ta, tb, spec)))
         log(f"kernel mont_mul {spec.name} ({B},16): equal to plain; kernel {times[spec.name][0]:.4f} ms, "
             f"plain {times[spec.name][1]:.4f} ms")
-    results["mont_mul"] = {"max_abs_err": max(errs), "ms": times["Fr"][0], "plain_ms": times["Fr"][1]}
+    results["mont_mul"] = {"max_abs_err": max(errs), "ms": times["Fr"][0], "plain_ms": times["Fr"][1],
+                           **bound(3 * B * FE_BYTES, B)}
 
     # K2/K3 on 1820 * 18 points from a pool of random multiples of G, with
     # the identity, P + P and P + (-P) in the first rows
@@ -135,7 +182,9 @@ def phase_kernels(torch, dev, rng):
     require(dbl == [bn254.g1_double(x) for x in ps[:64]], "g1_double: kernel != oracle")
     for name, kern, plain, args in (checks[0], checks[2]):
         ms, plain_ms = cuda_ms(torch, lambda: kern(*args)), cuda_ms(torch, lambda: plain(*args))
-        results[name] = {"max_abs_err": max(errs[name]), "ms": ms, "plain_ms": plain_ms}
+        ops = MONT_PER["add" if name == "g1_add" else "double"]
+        results[name] = {"max_abs_err": max(errs[name]), "ms": ms, "plain_ms": plain_ms,
+                         **bound((3 * len(args) + 3) * n_pts * FE_BYTES, ops * n_pts)}
         log(f"kernel {name} ({n_pts} points): equal to plain; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
 
     # K4 msm_scan at B = 1820, n = 18, all 64 windows, with zero and one scalars
@@ -152,7 +201,10 @@ def phase_kernels(torch, dev, rng):
         require(C.g1_to_affine_ints(C.G1(*(c[row:row + 1] for c in got))) == [want_aff], "msm_scan: kernel != oracle")
     ms = cuda_ms(torch, lambda: MK.msm_scan(table, digits))
     plain_ms = cuda_ms(torch, lambda: MK.msm_scan_plain(table, digits))
-    results["msm_scan"] = {"max_abs_err": max_abs_err(torch, got, want), "ms": ms, "plain_ms": plain_ms}
+    nwin = digits.shape[-1]
+    point_ops = (nwin * N_TERMS - 1) * MONT_PER["add"] + WINDOW_DBLS * (nwin - 1) * MONT_PER["double"]
+    results["msm_scan"] = {"max_abs_err": max_abs_err(torch, got, want), "ms": ms, "plain_ms": plain_ms,
+                           **bound((table.numel() // 16 + B * N_TERMS + 3 * B) * FE_BYTES, B * point_ops)}
     log(f"kernel msm_scan (B={B}, n={N_TERMS}, 64 windows): equal to plain; kernel {ms:.4f} ms "
         f"(block {MK.BLOCK}), plain {plain_ms:.4f} ms")
     sweep = {}
@@ -165,12 +217,117 @@ def phase_kernels(torch, dev, rng):
     return results
 
 
+def phase_kernels_decide(torch, dev, rng):
+    """K5, K6 and K7 against their plain versions on the card, same inputs,
+    at the decide's shapes (and K7 also at a width that fills the card)."""
+    from snark_verifier_tpu_torch.ops import curve as C
+    from snark_verifier_tpu_torch.ops import curve_cuda as CK
+    from snark_verifier_tpu_torch.ops import field as F
+    from snark_verifier_tpu_torch.ops import msm_cuda as MK
+    from snark_verifier_tpu_torch.ops import tower_cuda as TC
+    from snark_verifier_tpu_torch.util import bn254
+
+    results = {}
+    pool = [bn254.g1_mul(bn254.G1_GEN, rng.randrange(1, bn254.R)) for _ in range(64)]
+
+    # K5 at the fold's first tree level: 32 windows x 1024 pairs, random mask;
+    # rows 0-3: identity + Q, P + P, P + (-P), P + identity
+    n = 32 * 1024
+    ps = [pool[rng.randrange(64)] for _ in range(n)]
+    qs = [pool[rng.randrange(64)] for _ in range(n)]
+    ps[0], qs[1], qs[2], qs[3] = None, ps[1], bn254.g1_neg(ps[2]), None
+    p = C.g1_from_affine_ints(ps, dev)
+    q = C.g1_from_affine_ints(qs, dev)
+    r = CK.g1_add(p, q)  # projective (z != 1) first operands
+    r, q = (C.G1(*(c.reshape(32, 1024, 16) for c in t)) for t in (r, q))
+    mask = torch.as_tensor([i < 4 or rng.random() < 0.5 for i in range(n)], device=dev).reshape(32, 1024)
+    got, want = CK.g1_add_select(mask, r, q), CK.g1_add_select_plain(mask, r, q)
+    torch.cuda.synchronize()
+    require(all(torch.equal(g, w) for g, w in zip(got, want)), "g1_add_select: kernel != plain")
+    sums = [bn254.g1_add(x, y) for x, y in zip(ps[:64], qs[:64])]
+    m = mask.reshape(-1)[:64].tolist()
+    want_aff = [bn254.g1_add(s, y) if k else s for s, y, k in zip(sums, qs[:64], m)]
+    require(C.g1_to_affine_ints(C.G1(*(c.reshape(-1, 16)[:64] for c in got))) == want_aff,
+            "g1_add_select: kernel != oracle")
+    ms = cuda_ms(torch, lambda: CK.g1_add_select(mask, r, q))
+    plain_ms = cuda_ms(torch, lambda: CK.g1_add_select_plain(mask, r, q))
+    results["g1_add_select"] = {"max_abs_err": max_abs_err(torch, got, want), "ms": ms, "plain_ms": plain_ms,
+                                **bound(9 * n * FE_BYTES + n, MONT_PER["add"] * n)}
+    log(f"kernel g1_add_select (32 x 1024 pairs): equal to plain and oracle; kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms")
+
+    # K6 at nwin = 32 (window 8) and 24 (window 11), one MSM each
+    for nwin, window in ((32, 8), (24, 11)):
+        pts = [pool[rng.randrange(64)] for _ in range(nwin)]
+        tot = C.G1(*(c.reshape(1, nwin, 16) for c in CK.g1_double(C.g1_from_affine_ints(pts, dev))))
+        got, want = MK.horner_combine(tot, window), MK.horner_combine_plain(tot, window)
+        torch.cuda.synchronize()
+        require(all(torch.equal(g, w) for g, w in zip(got, want)), f"horner_combine nwin={nwin}: kernel != plain")
+        want_aff = bn254.g1_msm([2 << (window * w) for w in range(nwin)], pts)
+        require(C.g1_to_affine_ints(got) == [want_aff], f"horner_combine nwin={nwin}: kernel != oracle")
+        ms = cuda_ms(torch, lambda: MK.horner_combine(tot, window))
+        plain_ms = cuda_ms(torch, lambda: MK.horner_combine_plain(tot, window))
+        log(f"kernel horner_combine (nwin={nwin}, window={window}): equal to plain and oracle; "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        if window == 8:  # the decide's shape
+            ops = nwin * (window * MONT_PER["double"] + MONT_PER["add"])
+            results["horner_combine"] = {
+                "max_abs_err": max_abs_err(torch, got, want), "ms": ms, "plain_ms": plain_ms,
+                **bound(3 * (nwin + 1) * FE_BYTES, ops),
+            }
+
+    # K7 at B = 2 (the Miller loop's doubled batch) and 4096 (a full card)
+    def rand_fq12(batch):
+        vals = [[rng.randrange(bn254.P) for _ in range(batch)] for _ in range(12)]
+        return vals, torch.as_tensor(F.FQ.encode(vals).astype("int64"), device=dev)
+
+    for batch in (2, 4096):
+        (va, a), (vb, b) = rand_fq12(batch), rand_fq12(batch)
+        got, want = TC.fq12_mul_flat(a, b), TC.fq12_mul_flat_plain(a, b)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"fq12_mul B={batch}: kernel != plain")
+        dec = F.FQ.decode(got[:, :2])
+
+        def tree(v, i):
+            return tuple(tuple((v[l * 6 + j * 2][i], v[l * 6 + j * 2 + 1][i]) for j in range(3)) for l in range(2))
+
+        for i in range(2):
+            require(tree(dec, i) == bn254.fq12_mul(tree(va, i), tree(vb, i)), f"fq12_mul B={batch}: kernel != oracle")
+        ms = cuda_ms(torch, lambda: TC.fq12_mul_flat(a, b))
+        plain_ms = cuda_ms(torch, lambda: TC.fq12_mul_flat_plain(a, b))
+        res = {"max_abs_err": max_abs_err(torch, [got], [want]), "ms": ms, "plain_ms": plain_ms,
+               **bound(3 * 12 * batch * FE_BYTES, MONT_PER["fq12"] * batch)}
+        log(f"kernel fq12_mul (B={batch}): equal to plain and oracle; kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {res['bound_ms']:.6f} ms ({res['bound_by']})")
+        if batch == 2:
+            results["fq12_mul"] = res
+        else:
+            results["fq12_mul"]["wide"] = {"batch": batch, **{k: res[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}}
+    return results
+
+
 def wrappers():
     from snark_verifier_tpu_torch.ops import curve_cuda as CK
     from snark_verifier_tpu_torch.ops import field_cuda as FK
     from snark_verifier_tpu_torch.ops import msm_cuda as MK
+    from snark_verifier_tpu_torch.ops import tower_cuda as TC
 
-    return {"mont_mul": FK.mont_mul, "g1_add": CK.g1_add, "g1_double": CK.g1_double, "msm_scan": MK.msm_scan}
+    return {"mont_mul": FK.mont_mul, "g1_add": CK.g1_add, "g1_double": CK.g1_double, "msm_scan": MK.msm_scan,
+            "g1_add_select": CK.g1_add_select, "horner_combine": MK.horner_combine, "fq12_mul": TC.fq12_mul_flat}
+
+
+def count_launches(torch, run, required):
+    """Zero every kernel's count, run the path, read the counts; fail if a
+    kernel in ``required`` was not launched."""
+    kernels = wrappers()
+    for k in kernels.values():
+        k.launches = 0
+    result = run()
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in kernels.items()}
+    for name in required:
+        require(launches[name] > 0, f"{name} was not launched by the main path")
+    return result, launches
 
 
 def check_against_native(out, fx, rows, proofs, instances):
@@ -203,20 +360,13 @@ def phase_slice(torch, dev, card):
     instances[wrong_row] = [[instances[wrong_row][0][0] + 1]]
     args = (pack_proofs(proofs, dev), pack_instances(instances, dev))
 
-    kernels = wrappers()
-    for k in kernels.values():
-        k.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    out = fn(*args)
-    torch.cuda.synchronize()
+    out, launches = count_launches(torch, lambda: fn(*args), SLICE_KERNELS)
     first_s = time.perf_counter() - t0
-    launches = {name: k.launches for name, k in kernels.items()}
     peak = torch.cuda.max_memory_allocated(dev)
     log(f"slice first run: {first_s:.3f} s; launches {launches}")
-    for name, count in launches.items():
-        require(count > 0, f"{name} was not launched by the main path")
 
     for key in ("lhs_x", "lhs_y", "rhs_x", "rhs_y"):
         v = out[key]
@@ -246,14 +396,18 @@ def phase_slice(torch, dev, card):
     warm = statistics.median(times)
     log(f"slice warm verify (k=8, B={B}, GWC, EVM transcript): median {warm:.4f} s of {[round(t, 4) for t in times]}, "
         f"{B / warm:.1f} proofs/s, peak memory {peak / 2**20:.1f} MiB, on {card}")
-    profile_verify(torch, fn, args, warm)
-    return launches
+    per_launch, least = profile_run(torch, "slice", "msm_scan", fn, args, warm)
+    return launches, per_launch, least, out, wrong_row, warm
 
 
-def profile_verify(torch, fn, args, warm_s: float) -> None:
-    """One warm verify under torch.profiler: device time by kernel, launch
-    and host-op counts, and the device's busy share of the unprofiled warm
-    wall time (one stream, so kernel times do not overlap)."""
+def profile_run(torch, label, anchor, fn, args, warm_s: float) -> dict:
+    """One warm run of ``fn`` under torch.profiler: device time by kernel,
+    launch and host-op counts, and the device's busy share of the
+    unprofiled warm wall time (one stream, so kernel times do not overlap).
+    ``anchor`` is a kernel the run must show for the profile to count.
+    Returns each hand-written kernel's mean device ms per launch in the run
+    and the least device ms of any one launch of them (empty and None when
+    the profiler recorded no ``anchor``)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -267,14 +421,30 @@ def profile_verify(torch, fn, args, warm_s: float) -> None:
         key = next((k for k in KERNELS if f"{k}_kernel" in e.name), "plain torch")
         count, us = by.get(key, (0, 0.0))
         by[key] = (count + 1, us + e.device_time_total)
-    if "msm_scan" not in by:  # the launch counters, not the profiler, prove the path
-        log("slice profile: the profiler recorded no msm_scan kernel; device busy share not measured")
-        return
+    if anchor not in by:  # the launch counters, not the profiler, prove the path
+        log(f"{label} profile: the profiler recorded no {anchor} kernel; device busy share not measured")
+        return {}, None
     busy_ms = sum(us for _, us in by.values()) / 1e3
     ranked = sorted(by.items(), key=lambda kv: -kv[1][1])
     parts = ", ".join(f"{k} {c} launches {us / 1e3:.3f} ms" for k, (c, us) in ranked)
-    log(f"slice profile (one warm verify): device busy {busy_ms:.3f} ms over {len(device)} device ops "
+    log(f"{label} profile (one warm run): device busy {busy_ms:.3f} ms over {len(device)} device ops "
         f"= {100 * busy_ms / 1e3 / warm_s:.1f} % of the {warm_s:.4f} s warm wall; {host_ops} host aten ops; {parts}")
+    least = min(e.device_time_total for e in device if any(f"{k}_kernel" in e.name for k in KERNELS)) / 1e3
+    return {k: us / c / 1e3 for k, (c, us) in by.items() if k in KERNELS}, least
+
+
+def log_ptxas(path) -> None:
+    """Registers, stack and spills per kernel from the build log."""
+    if not path.exists():  # the library existed: nothing was compiled in this run
+        return
+    name = None
+    for line in path.read_text().splitlines():
+        if "Compiling entry function" in line:
+            name = next((k for k in KERNELS if f"{k}_kernel" in line), None)
+        elif name and ("spill" in line or "registers" in line):
+            log(f"ptxas {name}: {line.strip()}")
+            if "registers" in line:
+                name = None
 
 
 def phase_shplonk(torch, dev):
@@ -289,6 +459,105 @@ def phase_shplonk(torch, dev):
     instances = [fx.instances[i % len(fx.proofs)] for i in range(SHPLONK_BATCH)]
     check_against_native(out, fx, range(len(fx.proofs)), proofs, instances)
     log(f"shplonk B={SHPLONK_BATCH}: accumulators equal native, all ok")
+
+
+def phase_decide(torch, dev, card, out, wrong_row, verify_s):
+    """The batch decide through ``entry.decide_entry``: the decider, the
+    1820 accumulators of the config-1 batch and seeded fold scalars.  True
+    on them, False with the slice's wrong-instance accumulator in place of
+    one row; then build_verifier(decide_dk) on 8 proofs against the host
+    oracle."""
+    from snark_verifier_tpu_torch import entry as E
+    from snark_verifier_tpu_torch.parallel.batch import build_verifier, pack_instances, pack_proofs
+
+    fx = E.fixture(E.K, "gwc")
+    decider, good_args = E.decide_entry(dev, batch=B, seed=SEED)
+    wrong_args = tuple(a.clone() for a in good_args)
+    for a, key in zip(wrong_args, ("lhs_x", "lhs_y", "rhs_x", "rhs_y")):
+        a[B // 2] = out[key][wrong_row]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    ok, launches = count_launches(torch, lambda: decider(*good_args), DECIDE_KERNELS)
+    first_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    require(ok.shape == () and bool(ok) is True, "decide: the good batch must decide True")
+    require(bool(decider(*wrong_args)) is False, "decide: the wrong-instance row must make it False")
+    log(f"decide (B={B}): good rows True, wrong-instance row folded in False; first run {first_s:.3f} s; "
+        f"launches {launches}")
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decider(*good_args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    warm = statistics.median(times)
+    log(f"decide warm (fold of {B} accumulators + one pairing): median {warm:.4f} s of "
+        f"{[round(t, 4) for t in times]}; verify + decide {B / (verify_s + warm):.1f} verified proofs/s "
+        f"(verify {verify_s:.4f} s + decide {warm:.4f} s); peak memory {peak / 2**20:.1f} MiB, on {card}")
+    per_launch, least = profile_run(torch, "decide", "fq12_mul", decider, good_args, warm)
+
+    proofs = [fx.proofs[i % len(fx.proofs)] for i in range(DECIDE_PROOFS)]
+    instances = [fx.instances[i % len(fx.proofs)] for i in range(DECIDE_PROOFS)]
+    proofs[2] = E.corrupt(proofs[2])
+    instances[5] = [[instances[5][0][0] + 1]]
+    fn = build_verifier(fx.protocol, fx.As, fx.svk, device=dev, decide_dk=fx.dk)
+    got = fn(pack_proofs(proofs, dev), pack_instances(instances, dev))["ok"].cpu().tolist()
+    want = []
+    for proof, ins in zip(proofs, instances):
+        try:
+            want.append(E.host_decide(fx, *E.native_accumulator(fx, proof, ins)))
+        except Exception:  # the native transcript rejects the off-curve point
+            want.append(False)
+    require(got == want == [i not in (2, 5) for i in range(DECIDE_PROOFS)],
+            f"build_verifier(decide_dk): ok {got} != host oracle {want}")
+    log(f"build_verifier(decide_dk) on {DECIDE_PROOFS} proofs: ok {got} equals the host oracle")
+    return launches, per_launch, least
+
+
+def phase_msm(torch, dev, card, rng):
+    """msm_serial at 2^16 (window 8) and 2^20 (window 11, signed): points a
+    pool of 64 random multiples of G tiled, random Fr scalars; exact against
+    the oracle via the per-pool-point scalar sums."""
+    from snark_verifier_tpu_torch import entry as E
+    from snark_verifier_tpu_torch.ops import curve as C
+    from snark_verifier_tpu_torch.ops import msm as M
+    from snark_verifier_tpu_torch.util import bn254
+
+    pool = [bn254.g1_mul(bn254.G1_GEN, rng.randrange(1, bn254.R)) for _ in range(MSM_POOL)]
+    pool_t = C.g1_from_affine_ints(pool, dev)
+    for logn, window, signed in MSM_CASES:
+        n = 1 << logn
+        idx = torch.arange(n, device=dev) % MSM_POOL
+        pts = C.G1(*(c[idx] for c in pool_t))
+        scal = E.fold_scalars(n, torch.Generator().manual_seed(SEED + logn), "cpu")
+        sums = scal.reshape(n // MSM_POOL, MSM_POOL, 16).sum(0).tolist()  # per pool point, per limb
+        reduced = [sum(v << (16 * i) for i, v in enumerate(row)) % bn254.R for row in sums]
+        scal = scal.to(dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out = M.msm_serial(pts, scal, window, signed)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        require(C.g1_to_affine_ints(C.G1(*(c[None] for c in out))) == [bn254.g1_msm(reduced, pool)],
+                f"msm_serial 2^{logn}: != oracle")
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            M.msm_serial(pts, scal, window, signed)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        warm = statistics.median(times)
+        log(f"msm_serial 2^{logn} (window {window}, {'signed' if signed else 'unsigned'}): equal to the oracle; "
+            f"first {first_s:.4f} s, warm median {warm:.4f} s of {[round(t, 4) for t in times]} = "
+            f"{n / warm:.1f} points/s; peak memory {peak / 2**20:.1f} MiB, on {card}")
+        del pts, scal, out
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -311,14 +580,34 @@ def main() -> int:
     _build.library()
     log(f"build: {path.name} in {build_s:.1f} s (nvcc {' '.join(_build.NVCC_FLAGS)})")
 
+    log_ptxas(path.with_suffix(".log"))
+
     rng = random.Random(SEED)
     results = phase_kernels(torch, dev, rng)
-    launches = phase_slice(torch, dev, smi)
+    results.update(phase_kernels_decide(torch, dev, rng))
+    slice_launches, slice_per_launch, slice_least, out, wrong_row, verify_s = phase_slice(torch, dev, smi)
     phase_shplonk(torch, dev)
+    decide_launches, decide_per_launch, decide_least = phase_decide(torch, dev, smi, out, wrong_row, verify_s)
+    del out
+    phase_msm(torch, dev, smi, rng)
     require("jax" not in sys.modules, "the port must not import jax")
+    require(not any(m == "snark_verifier_tpu" or m.startswith("snark_verifier_tpu.") for m in sys.modules),
+            "the port must not import the JAX package")
 
+    # each kernel's launches, and its mean device ms per launch (torch.profiler),
+    # on the path that counts it: the slice for K1-K4, the decide for K5-K7
+    launches = {**{k: decide_launches[k] for k in DECIDE_KERNELS}, **{k: slice_launches[k] for k in SLICE_KERNELS}}
+    path_ms = {**{k: decide_per_launch.get(k) for k in DECIDE_KERNELS},
+               **{k: slice_per_launch.get(k) for k in SLICE_KERNELS}}
+    # the per-launch floor: the least device time any one kernel launch took
+    # in the path profiles; no launch, however little its work, takes less
+    floors = [t for t in (slice_least, decide_least) if t is not None]
+    floor = min(floors) if floors else None
+    log(f"per-launch floor (least device time of one kernel launch in the path profiles): {floor} ms")
     report = [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches[name], **results[name]}
+        {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches[name],
+         "path_device_ms": path_ms[name], **results[name],
+         "bound_with_floor_ms": None if floor is None else max(results[name]["bound_ms"], floor)}
         for name, (src, rep) in KERNELS.items()
     ]
     print(json.dumps({"kernels": report}))

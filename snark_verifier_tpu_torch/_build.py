@@ -1,8 +1,8 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-One ``nvcc`` call compiles every ``.cu`` file for Hopper (``sm_90a``) into a
-single shared library with a plain C interface, which is loaded with
-``ctypes``.  Tensor pointers and the CUDA stream are passed as
+One ``nvcc`` process per ``.cu`` file, all started together, compiles the
+sources for Hopper (``sm_90a``); one more links the objects into a single
+shared library with a plain C interface, which is loaded with ``ctypes``.  Tensor pointers and the CUDA stream are passed as
 ``c_void_p``.  The library lives in ``build/`` beside this file (listed in
 ``.gitignore``), named by a hash of the sources, so an edit rebuilds and an
 unchanged tree reuses it.  Nothing is built at import time: the first kernel
@@ -22,11 +22,11 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-KERNEL_SOURCES = ("field.cu", "curve.cu", "msm.cu")
+KERNEL_SOURCES = ("field.cu", "curve.cu", "msm.cu", "tower.cu")
 HEADERS = ("bn254.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills per kernel, into the build log
 )
 
@@ -39,6 +39,9 @@ SIGNATURES = {
     "svtpu_g1_add": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P, _INT, _P],
     "svtpu_g1_double": [_P, _P, _P, _P, _P, _P, _I64, _P, _INT, _P],
     "svtpu_msm_scan": [_P, _P, _P, _P, _P, _I64, _INT, _INT, _P, _INT, _P],
+    "svtpu_g1_add_select": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P, _INT, _P],
+    "svtpu_horner_combine": [_P, _P, _P, _P, _P, _P, _I64, _INT, _INT, _P, _INT, _P],
+    "svtpu_fq12_mul": [_P, _P, _P, _I64, _P, _INT, _P],
 }
 
 
@@ -66,26 +69,46 @@ def nvcc_path() -> str:
     return found
 
 
-def nvcc_command(out: Path, nvcc: str = "nvcc") -> list[str]:
-    return [nvcc, *NVCC_FLAGS, "-o", str(out), *(str(CSRC_DIR / s) for s in KERNEL_SOURCES)]
+def compile_command(source: str, obj: Path, nvcc: str = "nvcc") -> list[str]:
+    """nvcc compiling one kernel source to an object file."""
+    return [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC_DIR / source)]
+
+
+def link_command(out: Path, objs, nvcc: str = "nvcc") -> list[str]:
+    """nvcc linking the objects into the shared library."""
+    return [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(out), *map(str, objs)]
 
 
 def build() -> tuple[Path, float]:
-    """Compile the kernels if the library for the current sources is missing.
-    Returns (library path, seconds spent compiling; 0.0 when it existed)."""
+    """Compile the kernels if the library for the current sources is missing:
+    one nvcc per source, all at once, then one link.  Returns (library path,
+    seconds spent building; 0.0 when it existed)."""
     out = library_path()
     if out.exists():
         return out, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
-    cmd = nvcc_command(tmp, nvcc_path())
+    nvcc = nvcc_path()
+    tag = f"{out.stem}.tmp{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in KERNEL_SOURCES]
+    cmds = [compile_command(s, o, nvcc) for s, o in zip(KERNEL_SOURCES, objs)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in cmds]
+    logs = [" ".join(c) + "\n" + p.communicate()[0] for c, p in zip(cmds, procs)]
+    failed = [c for c, p in zip(cmds, procs) if p.returncode != 0]
+    tmp = out.with_name(f"{tag}.so")
+    if not failed:
+        link = link_command(tmp, objs, nvcc)
+        proc = subprocess.run(link, capture_output=True, text=True)
+        logs.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(link)
     seconds = time.perf_counter() - t0
     log = out.with_suffix(".log")
-    log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}); see {log}\n{proc.stderr[-4000:]}")
+    log.write_text("".join(logs))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed: {' '.join(failed[0])}; see {log}\n{''.join(logs)[-4000:]}")
     os.replace(tmp, out)
     return out, seconds
 

@@ -1,4 +1,4 @@
-// Shared device routines for the BN254 kernels (K1-K4).
+// Shared device routines for the BN254 kernels (K1-K7).
 //
 // Field elements cross the kernel boundary in the port's tensor layout: 16
 // little-endian 16-bit limbs held as int64, Montgomery form with R = 2^256.
@@ -176,6 +176,24 @@ __device__ __forceinline__ Fe fzero() {
   Fe r;
 #pragma unroll
   for (int j = 0; j < NW; ++j) r.w[j] = 0;
+  return r;
+}
+
+// Montgomery one, R mod p = 2^256 mod p: 0 - p wrapped to 2^256 - p, then
+// p subtracted while the value is still >= p (at most 5 times for BN254).
+__device__ __forceinline__ Fe mont_one(const Field& f) {
+  Fe r, d;
+  const Fe z = fzero();
+  sub_words(r.w, z.w, f.p);
+  while (!sub_words(d.w, r.w, f.p)) r = d;
+  return r;
+}
+
+__device__ __forceinline__ G1 g1_identity(const Field& f) {
+  G1 r;
+  r.x = fzero();
+  r.y = mont_one(f);
+  r.z = fzero();
   return r;
 }
 

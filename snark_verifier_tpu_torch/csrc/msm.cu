@@ -1,4 +1,5 @@
 // K4: batched small MSM by point scan, one accumulator per proof.
+// K6: Horner window combine of a large MSM, one accumulator per MSM.
 //
 // Replaces snark_verifier_tpu/ops/msm_pallas.py _scan_kernel_body (_scan_call,
 // driven by msm_batched_fused).  The TPU kernel runs a sequential grid
@@ -19,6 +20,20 @@
 // 64 * (n + 4) point operations.  The block size is a launch parameter
 // (chip_smoke.py sweeps it); splitting one proof's scan over several threads
 // (by points or windows) is the next step.
+//
+// K6 replaces snark_verifier_tpu/ops/curve_pallas.py _horner_w_kernel
+// (horner_combine_pallas, driven by msm._horner_combine): acc = sum_w
+// 2^(w * window) T_w over the per-window totals T_w.  The TPU kernel runs a
+// sequential window grid with the accumulator in VMEM; here one thread walks
+// the windows most significant first and keeps the accumulator in registers.
+// It starts from the identity and runs `window` doublings and one complete
+// add per window, the operations of the JAX package's CPU reference scan, so
+// the output triple matches it limb for limb.  The leading batch axis (one
+// thread per MSM) serves batched MSMs; the decide has two MSMs.
+//
+// Bound on the H100: latency.  One MSM is a serial chain of nwin * (window +
+// 1) point operations (32 * 9 at window 8) on one thread; nothing in the
+// chain can run in parallel, so its time is the chain's latency.
 //
 // Layouts: table (9, 3, n, B, 16) int64 (entry k, coordinate, point, proof,
 // limb); digits (B, n, nwin) int64 signed windows in [-8, 8], least
@@ -65,6 +80,30 @@ __global__ void msm_scan_kernel(const int64_t* __restrict__ table,
   svtpu::store_fe(oz + 16 * b, acc.z);
 }
 
+// totals: three (batch, nwin, 16) coordinate tensors, window 0 least
+// significant; outputs three (batch, 16) tensors.
+__global__ void horner_combine_kernel(const int64_t* __restrict__ tx,
+                                      const int64_t* __restrict__ ty,
+                                      const int64_t* __restrict__ tz, int64_t* __restrict__ ox,
+                                      int64_t* __restrict__ oy, int64_t* __restrict__ oz,
+                                      int64_t batch, int nwin, int window, svtpu::Field f) {
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (b >= batch) return;
+  svtpu::G1 acc = svtpu::g1_identity(f);
+  for (int w = nwin - 1; w >= 0; --w) {
+    for (int k = 0; k < window; ++k) acc = svtpu::g1_double(acc, f);
+    const int64_t off = (b * nwin + w) * 16;
+    svtpu::G1 t;
+    t.x = svtpu::load_fe(tx + off);
+    t.y = svtpu::load_fe(ty + off);
+    t.z = svtpu::load_fe(tz + off);
+    acc = svtpu::g1_add(acc, t, f);
+  }
+  svtpu::store_fe(ox + 16 * b, acc.x);
+  svtpu::store_fe(oy + 16 * b, acc.y);
+  svtpu::store_fe(oz + 16 * b, acc.z);
+}
+
 }  // namespace
 
 extern "C" int svtpu_msm_scan(const void* table, const void* digits, void* ox, void* oy,
@@ -77,5 +116,18 @@ extern "C" int svtpu_msm_scan(const void* table, const void* digits, void* ox, v
       static_cast<const int64_t*>(table), static_cast<const int64_t*>(digits),
       static_cast<int64_t*>(ox), static_cast<int64_t*>(oy), static_cast<int64_t*>(oz), batch,
       npoints, nwin, f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int svtpu_horner_combine(const void* tx, const void* ty, const void* tz, void* ox,
+                                    void* oy, void* oz, int64_t batch, int nwin, int window,
+                                    const void* field_words, int block, void* stream) {
+  if (batch <= 0) return 0;
+  const svtpu::Field f = svtpu::field_from_host(static_cast<const uint32_t*>(field_words));
+  horner_combine_kernel<<<svtpu::grid_for(batch, block), block, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(tx), static_cast<const int64_t*>(ty),
+      static_cast<const int64_t*>(tz), static_cast<int64_t*>(ox), static_cast<int64_t*>(oy),
+      static_cast<int64_t*>(oz), batch, nwin, window, f);
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,7 +5,7 @@ carries the leading batch shape of the proofs being verified, so verifying B
 proofs is one eager run over (B, ...) tensors.  Checks that fail do not
 raise: they AND into a per-proof ``ok`` mask through ``require``, the role of
 the EVM verifier's revert paths.  All tensors are created on the loader's
-``device``.
+``device``, the card unless the caller asks for another.
 """
 
 from __future__ import annotations
@@ -15,12 +15,13 @@ from typing import Optional
 
 import torch
 
-from snark_verifier_tpu.loader import EcPoint, Loader, Scalar
-from snark_verifier_tpu.util import bn254
+from snark_verifier_tpu_torch.loader import EcPoint, Loader, Scalar
 from snark_verifier_tpu_torch.ops import curve as CRV
 from snark_verifier_tpu_torch.ops import field as F
 from snark_verifier_tpu_torch.ops import msm as MSM
+from snark_verifier_tpu_torch.ops import pairing as PAIR
 from snark_verifier_tpu_torch.ops.curve import G1
+from snark_verifier_tpu_torch.util import bn254
 
 FR, FQ = F.FR, F.FQ
 
@@ -51,7 +52,7 @@ class TorchPoint:
 
 
 class TorchLoader(Loader):
-    def __init__(self, batch_shape=(), device="cpu"):
+    def __init__(self, batch_shape=(), device="cuda"):
         self.batch_shape = tuple(batch_shape)
         self.device = torch.device(device)
         self.ok = torch.ones(self.batch_shape, dtype=torch.bool, device=self.device)
@@ -140,11 +141,15 @@ class TorchLoader(Loader):
     # -- decider hooks --------------------------------------------------------
     def decide_ipa(self, accumulator, dk):
         raise NotImplementedError(
-            "TorchLoader.decide_ipa needs the large MSM (msm_serial): ROADMAP.md section 1, item 3"
+            "TorchLoader.decide_ipa (the IPA decide over the large MSM) is not ported yet: "
+            "ROADMAP.md section 1, item 2"
         )
 
     def decide_pairing(self, accumulator, dk):
-        raise NotImplementedError(
-            "TorchLoader.decide_pairing needs the tower, the pairing and the large MSM: "
-            "ROADMAP.md section 1, item 1 (the decide half)"
-        )
+        """e(lhs, g2) * e(rhs, -s_g2) == 1 per proof on the device, folded
+        into ``ok``; returns the (batch,) mask."""
+        full = self.batch_shape + (F.NLIMB,)
+        lhs, rhs = (G1(*(c.expand(full) for c in p.value.as_proj())) for p in (accumulator.lhs, accumulator.rhs))
+        ok = PAIR.kzg_pairing_check(lhs, rhs, dk.g2, dk.s_g2)
+        self.require(ok)
+        return ok

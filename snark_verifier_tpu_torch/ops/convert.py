@@ -2,9 +2,10 @@
 tensors.
 
 The JAX package holds field elements as ``(..., 16)`` uint32 16-bit limbs
-(``ops/limbs.py``, reused as is); the port holds the same limbs as int64
-tensors on a device, because CPU PyTorch lacks add, ``>>`` and ``<`` on
-uint32.  The values are identical, so conversion is a dtype change.
+(``ops/limbs.py``, of which the port keeps a copy); the port holds the same
+limbs as int64 tensors on a device, because CPU PyTorch lacks add, ``>>``
+and ``<`` on uint32.  The values are identical, so conversion is a dtype
+change.  Every function takes the target device explicitly.
 """
 
 from __future__ import annotations
@@ -12,11 +13,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from snark_verifier_tpu.ops.limbs import NLIMB, ints_to_limbs
 from snark_verifier_tpu_torch.ops.curve import G1
+from snark_verifier_tpu_torch.ops.limbs import NLIMB, ints_to_limbs
 
 
-def limbs_to_tensor(arr, device="cpu") -> torch.Tensor:
+def limbs_to_tensor(arr, device) -> torch.Tensor:
     """(..., 16) uint32 (or any integer) limb array -> int64 tensor."""
     arr = np.asarray(arr)
     if arr.shape[-1:] != (NLIMB,):
@@ -29,12 +30,12 @@ def tensor_to_limbs(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy().astype(np.uint32)
 
 
-def ints_to_tensor(values, device="cpu") -> torch.Tensor:
+def ints_to_tensor(values, device) -> torch.Tensor:
     """Canonical python ints -> (len, 16) int64 limbs (not Montgomery)."""
     return limbs_to_tensor(ints_to_limbs(list(values)), device)
 
 
-def g1_from_numpy(point, device="cpu") -> G1:
+def g1_from_numpy(point, device) -> G1:
     """Any (x, y, z) triple of limb arrays (a JAX G1 included) -> port G1."""
     return G1(*(limbs_to_tensor(np.asarray(c), device) for c in point))
 
@@ -44,7 +45,7 @@ def g1_to_numpy(point: G1):
     return tuple(tensor_to_limbs(c) for c in point)
 
 
-def to_torch_params(obj, device="cpu"):
+def to_torch_params(obj, device):
     """Carry what the JAX side holds as numpy over to the port: limb arrays,
     G1 coordinate triples (``g1_from_affine_ints``), packed proofs and
     instances.  Walks dicts, lists and tuples; a named triple with fields

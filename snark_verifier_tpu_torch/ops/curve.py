@@ -6,7 +6,8 @@ Counterpart of ``snark_verifier_tpu/ops/curve.py``.  A point batch is
 projective form, identity (0 : 1 : 0); an all-zero triple is not a point and
 breaks the complete formulas.  ``g1_add`` and ``g1_double`` go through
 ``curve_cuda`` (kernels K2 and K3 on CUDA tensors, their plain versions on
-CPU tensors); the rest is plain PyTorch.
+CPU tensors), and so does ``g1_add_select`` (kernel K5); the rest is plain
+PyTorch.
 """
 
 from __future__ import annotations
@@ -16,8 +17,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from snark_verifier_tpu.util import bn254
 from snark_verifier_tpu_torch.ops import field as F
+from snark_verifier_tpu_torch.util import bn254
 
 FQ = F.FQ
 
@@ -34,11 +35,11 @@ class G1(NamedTuple):
         return self.x.shape[:-1]
 
 
-def g1_identity(shape=(), device="cpu") -> G1:
+def g1_identity(shape, device) -> G1:
     return G1(F.zeros(shape, device), F.ones(shape, FQ, device), F.zeros(shape, device))
 
 
-def g1_from_affine_ints(points, device="cpu") -> G1:
+def g1_from_affine_ints(points, device) -> G1:
     """Host: list of (x, y) int pairs or None -> point batch on ``device``."""
     xs, ys, zs = [], [], []
     for pt in points:
@@ -89,22 +90,31 @@ def g1_double(p: G1) -> G1:
 
 
 def g1_add_select(cond, p: G1, q: G1) -> G1:
-    """cond ? p + q : p (plain; the fused kernel is still to be ported)."""
-    return g1_select(cond, g1_add(p, q), p)
+    """cond ? p + q : p, the conditional-accumulate step of every tree fold.
+    Kernel K5 on CUDA tensors, ``g1_select(cond, g1_add(p, q), p)`` on CPU
+    tensors; the complete add is symmetric in (p, q)."""
+    from snark_verifier_tpu_torch.ops import curve_cuda
+
+    return curve_cuda.g1_add_select(cond, p, q)
 
 
 def g1_tree_sum(p: G1, dim: int = 0) -> G1:
     """Sum a point batch along ``dim`` by pairwise rounds: in round r, slot i
     (a multiple of 2^(r+1)) adds slot i + 2^r, the pairing of the JAX
-    ``g1_tree_sum``."""
+    ``g1_tree_sum``.  Each round keeps only the surviving slots and runs one
+    ``g1_add_select`` over their pairs; an odd last slot pairs with the
+    identity under a false mask."""
     cur = G1(*(c.movedim(dim, 0) for c in p))
-    n = cur.x.shape[0]
-    stride = 1
-    while stride < n:
-        left = torch.arange(0, n - stride, 2 * stride, device=cur.x.device)
-        summed = g1_add(G1(*(c[left] for c in cur)), G1(*(c[left + stride] for c in cur)))
-        cur = G1(*(c.index_copy(0, left, s) for c, s in zip(cur, summed)))
-        stride *= 2
+    while cur.x.shape[0] > 1:
+        m = cur.x.shape[0]
+        if m % 2:
+            pad = g1_identity((1,) + tuple(cur.x.shape[1:-1]), cur.x.device)
+            cur = G1(*(torch.cat([c, e]) for c, e in zip(cur, pad)))
+        even = G1(*(c[0::2] for c in cur))
+        odd = G1(*(c[1::2] for c in cur))
+        valid = torch.arange(len(even.x), device=cur.x.device) < m // 2
+        valid = valid.reshape((-1,) + (1,) * (cur.x.dim() - 2)).expand(even.x.shape[:-1])
+        cur = g1_add_select(valid, even, odd)
     return G1(cur.x[0], cur.y[0], cur.z[0])
 
 

@@ -1,11 +1,13 @@
-"""Kernels K2 (complete G1 add) and K3 (complete G1 double), with their plain
-versions.
+"""Kernels K2 (complete G1 add), K3 (complete G1 double) and K5 (complete G1
+add with a select), with their plain versions.
 
 K2 and K3 (``csrc/curve.cu``) replace ``snark_verifier_tpu/ops/curve_pallas.py``
 ``_add_kernel`` and ``_dbl_kernel`` (``g1_add_pallas``/``g1_add_t`` and
 ``g1_double_pallas``/``g1_double_t``), which the MSM uses to build its
-tables.  What bounds them on the H100 and what the design does about it is
-in the source's header.
+tables.  K5 (``csrc/curve.cu``) replaces ``_add_select_kernel``
+(``g1_add_select_pallas`` and ``g1_add_select_t``), the step of the large
+MSM's bucket tree, its flush and ``g1_tree_sum``.  What bounds them on the
+H100 and what the design does about it is in the source's header.
 
 The plain versions run RCB15 algorithms 7 and 9 with the same field
 operations on the same operands as ``curve_pallas._add_core``/``_dbl_core``,
@@ -18,10 +20,19 @@ from __future__ import annotations
 
 import torch
 
+from snark_verifier_tpu_torch import _build
 from snark_verifier_tpu_torch.config import use_kernel
 from snark_verifier_tpu_torch.ops import field as F
-from snark_verifier_tpu_torch.ops.curve import G1
-from snark_verifier_tpu_torch.ops.field_cuda import check_limbs, launch_elementwise, mont_mul_plain
+from snark_verifier_tpu_torch.ops.curve import G1, g1_select
+from snark_verifier_tpu_torch.ops.field_cuda import (
+    BLOCK,
+    _aligned,
+    check_limbs,
+    field_arg,
+    launch_elementwise,
+    mont_mul_plain,
+    stream_of,
+)
 
 FQ = F.FQ
 
@@ -101,5 +112,37 @@ def g1_double(p: G1) -> G1:
     return G1(*outs)
 
 
+def g1_add_select_plain(cond, p: G1, q: G1) -> G1:
+    """cond ? p + q : p in plain PyTorch."""
+    return g1_select(cond, g1_add_plain(p, q), p)
+
+
+def g1_add_select(cond, p: G1, q: G1) -> G1:
+    """cond ? p + q : p for point batches and a boolean ``cond``
+    (broadcasting).  CUDA tensors launch K5; CPU tensors take
+    ``g1_add_select_plain``."""
+    check_limbs("g1_add_select", *p, *q)
+    if cond.dtype != torch.bool:
+        raise ValueError(f"g1_add_select: cond must be bool, got {cond.dtype}")
+    if not use_kernel(cond, *p, *q):
+        return g1_add_select_plain(cond, p, q)
+    batch = torch.broadcast_shapes(cond.shape, *(c.shape[:-1] for c in (*p, *q)))
+    full = tuple(batch) + (F.NLIMB,)
+    ins = [_aligned(c.expand(full)) for c in (*p, *q)]
+    mask = cond.expand(batch).contiguous().view(torch.uint8)
+    n = mask.numel()
+    outs = [torch.empty(full, dtype=torch.int64, device=mask.device) for _ in range(3)]
+    with torch.cuda.device(mask.device):
+        code = _build.library().svtpu_g1_add_select(
+            *(t.data_ptr() for t in ins), mask.data_ptr(), *(o.data_ptr() for o in outs),
+            n, field_arg(FQ), BLOCK, stream_of(mask),
+        )
+    _build.check(code, "g1_add_select")
+    if n:
+        g1_add_select.launches += 1
+    return G1(*outs)
+
+
 g1_add.launches = 0
 g1_double.launches = 0
+g1_add_select.launches = 0

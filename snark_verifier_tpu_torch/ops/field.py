@@ -21,8 +21,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from snark_verifier_tpu.ops.limbs import LIMB_BITS, LIMB_MASK, NLIMB, TOTAL_BITS, int_to_limbs, limbs_to_int
-from snark_verifier_tpu.util import bn254
+from snark_verifier_tpu_torch.ops.limbs import LIMB_BITS, LIMB_MASK, NLIMB, TOTAL_BITS, int_to_limbs, limbs_to_int
+from snark_verifier_tpu_torch.util import bn254
 
 WORD_BITS = 32  # the kernels' word size
 
@@ -222,7 +222,7 @@ def _constant(value: int, spec: FieldSpec, device: torch.device) -> torch.Tensor
     return torch.as_tensor(enc, device=device)
 
 
-def constant(value: int, spec: FieldSpec, shape=(), device="cpu"):
+def constant(value: int, spec: FieldSpec, shape, device):
     """A python-int constant (canonical) as Montgomery limbs of ``shape``."""
     return _constant(value, spec, torch.device(device)).expand(*tuple(shape), NLIMB)
 

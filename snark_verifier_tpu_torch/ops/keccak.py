@@ -14,7 +14,7 @@ import functools
 import numpy as np
 import torch
 
-from snark_verifier_tpu.util.keccak import _RHO, _ROUND_CONSTANTS
+from snark_verifier_tpu_torch.util.keccak import _RHO, _ROUND_CONSTANTS
 
 RATE = 136  # bytes
 LANES_IN_RATE = RATE // 8

@@ -1,20 +1,33 @@
-"""Batched small multi-scalar multiplication.
+"""Multi-scalar multiplication: the batched small MSM of the succinct verify
+and the large single MSM of the decide.
 
-Counterpart of the small-MSM half of ``snark_verifier_tpu/ops/msm.py``
-(``msm_batched``, ``_msm_batched_xla``, ``scalar_mul``, ``_digits``).  The
-large single MSM of the decide step (``msm_serial``) is not ported yet.
+Counterpart of ``snark_verifier_tpu/ops/msm.py``: ``msm_batched``,
+``_msm_batched_xla``, ``scalar_mul`` and ``_digits`` (small MSM), and
+``msm_serial`` with ``_window_digits``, ``_signed_window_digits``,
+``_bucket_totals``, ``_g1_suffix_scan`` and ``_horner_combine`` (large MSM,
+the JAX package's CPU reference layout).  The TPU layout of the large MSM
+(``_bucket_runs_t``: transposed bit-reversed slabs, lane tiers) and
+``msm_serial_chunked``, which processes the windows in chunks, are not
+ported.
 
 Scalars enter in canonical (non-Montgomery) limb form.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from snark_verifier_tpu_torch.ops import curve as C
+from snark_verifier_tpu_torch.ops import field as F
 from snark_verifier_tpu_torch.ops.curve import G1
 from snark_verifier_tpu_torch.ops.field import LIMB_BITS, NLIMB
-from snark_verifier_tpu_torch.ops.msm_cuda import NWINDOWS, WINDOW, msm_batched_fused
+from snark_verifier_tpu_torch.ops.msm_cuda import NWINDOWS, WINDOW, horner_combine, msm_batched_fused
+
+# Check the flush invariant of ``_bucket_totals`` at every tree level (one
+# device-to-host read per level; off unless SVTPU_TORCH_CHECK_FLUSH=1).
+CHECK_FLUSH = os.environ.get("SVTPU_TORCH_CHECK_FLUSH") == "1"
 
 
 def _digits(scalars_canon):
@@ -56,3 +69,194 @@ def scalar_mul(point: G1, scalar_canon) -> G1:
     """Windowed scalar multiplication, batched over leading dims."""
     p = G1(*(c.unsqueeze(-2) for c in point))
     return msm_batched(p, scalar_canon.unsqueeze(-2))
+
+
+# ---------------------------------------------------------------------------
+# Large-N Pippenger (one MSM): sort + pairwise tree bucket accumulation.
+# ---------------------------------------------------------------------------
+
+
+def _window_digits(scalars_canon, window: int, nwin: int):
+    """(n, 16) canonical limbs -> (n, nwin) unsigned ``window``-bit digits,
+    least significant first."""
+    mask = (1 << window) - 1
+    cols = []
+    for w in range(nwin):
+        limb, shift = divmod(w * window, LIMB_BITS)
+        d = scalars_canon[:, limb] >> shift
+        got, k = LIMB_BITS - shift, limb + 1
+        while got < window and k < NLIMB:
+            d = d | (scalars_canon[:, k] << got)
+            got, k = got + LIMB_BITS, k + 1
+        cols.append(d & mask)
+    return torch.stack(cols, dim=-1)
+
+
+def _signed_window_digits(scalars_canon, window: int, nwin: int):
+    """(n, 16) canonical limbs -> (n, nwin) signed digits in
+    [-(2^(w-1) - 1), 2^(w-1)], least significant first: a window above
+    2^(w-1) borrows 2^w from the next one, and the top window of a 254-bit
+    scalar absorbs the last borrow."""
+    raw = _window_digits(scalars_canon, window, nwin)
+    out = []
+    carry = torch.zeros_like(raw[:, 0])
+    for w in range(nwin):
+        t = raw[:, w] + carry
+        carry = (t > (1 << (window - 1))).long()
+        out.append(t - (carry << window))
+    return torch.stack(out, dim=-1)
+
+
+def msm_serial(points: G1, scalars_canon, window: int = 8, signed: bool = False) -> G1:
+    """One large MSM: sum_i s_i P_i over n points (n,) with scalars (n, 16)
+    canonical.  Window-parallel Pippenger (the JAX package's ``msm_serial``):
+    all ceil(256 / window) windows run as one leading axis, the bucket sums
+    come from a pairwise tree over each window's sorted digit runs
+    (``_bucket_totals``), then the Horner combine across windows (kernel
+    K6).  Signed windows halve the buckets; the digit's sign negates the
+    point.  Working set ~ (nwin, n) points."""
+    n_orig = points.x.shape[0]
+    dev = points.x.device
+    nwin = (NLIMB * LIMB_BITS + window - 1) // window
+    n = 1 << max(0, n_orig - 1).bit_length()  # identity points / zero digits pad n to a power of two
+    dig = torch.zeros(nwin, n, dtype=torch.int64, device=dev)
+    neg = None
+    if signed:
+        nbuckets = (1 << (window - 1)) + 1
+        sd = _signed_window_digits(scalars_canon, window, nwin)
+        dig[:, :n_orig] = sd.abs().T
+        neg = torch.zeros(nwin, n, dtype=torch.bool, device=dev)
+        neg[:, :n_orig] = (sd < 0).T
+    else:
+        nbuckets = 1 << window
+        dig[:, :n_orig] = _window_digits(scalars_canon, window, nwin).T
+    pad = C.g1_identity((n - n_orig,), dev)
+    pts_pad = G1(*(torch.cat([c, e]) for c, e in zip(points, pad)))
+    return _horner_combine(_bucket_totals(pts_pad, dig, nbuckets, neg), window)
+
+
+def _check_flush_invariant(seg_e, valid) -> None:
+    """The invariant ``_flush_into`` relies on: each row of ``seg_e`` is
+    sorted, so a digit's run is contiguous, and holds at most one valid
+    (completed-run) marker.  Raises AssertionError when it does not hold."""
+    if bool((seg_e[:, 1:] < seg_e[:, :-1]).any()):
+        raise AssertionError("flush invariant: digit runs are not sorted")
+    counts = torch.zeros(seg_e.shape[0], int(seg_e.max()) + 1, dtype=torch.int64, device=seg_e.device)
+    counts.scatter_add_(1, seg_e, valid.long())
+    if bool((counts > 1).any()):
+        raise AssertionError("flush invariant: a digit completes more than one run in one level")
+
+
+def _flush_into(buckets: G1, flush: G1, seg_e, valid, bvals) -> G1:
+    """buckets[w, b] += flush[w, j] for the unique valid j with
+    seg_e[w, j] == b, if there is one.  seg_e is sorted per row, so the run
+    of digit b is [lo_b, hi_b) (a batched searchsorted) and the prefix sums
+    of valid * (j + 1) over that run give j + 1 or 0.  The JAX package keeps
+    the prefix in u32, which may wrap for huge n while the run's difference
+    stays exact; int64 holds the prefix itself, with no wrap."""
+    nwin, m = seg_e.shape
+    seg_e = seg_e.contiguous()
+    if CHECK_FLUSH:
+        _check_flush_invariant(seg_e, valid)
+    marks = torch.where(valid, torch.arange(1, m + 1, device=seg_e.device), 0)
+    s = torch.nn.functional.pad(torch.cumsum(marks, dim=1), (1, 0))
+    lo = torch.searchsorted(seg_e, bvals, right=False)
+    hi = torch.searchsorted(seg_e, bvals, right=True)
+    pos1 = s.gather(1, hi) - s.gather(1, lo)
+    idx = (pos1 - 1).clamp(min=0).unsqueeze(-1).expand(*pos1.shape, NLIMB)
+    picked = G1(*(c.gather(1, idx) for c in flush))
+    return C.g1_add_select(pos1 > 0, buckets, picked)
+
+
+def _bucket_totals(pts_pad: G1, dig, nbuckets: int, neg=None) -> G1:
+    """Per-window sort, pairwise tree reduction of the sorted digit runs into
+    buckets, weighted suffix-scan aggregation: dig (nwin, n) -> per-window
+    totals (nwin,).  Operation for operation the JAX package's
+    ``_bucket_totals``.
+
+    INVARIANT (``_flush_into`` depends on it): ``seg`` stays sorted per row
+    through the whole tree, so each level holds at most one completed run
+    per digit.  ``CHECK_FLUSH`` checks it at every level."""
+    nwin, n = dig.shape
+    dev = dig.device
+    idx_bits = max(1, (n - 1).bit_length())
+    # one sort of (digit << idx_bits | index) keys: the digit order and the
+    # permutation at once (the keys are unique, so the order is the JAX one)
+    sk, _ = torch.sort((dig << idx_bits) | torch.arange(n, device=dev), dim=1)
+    order = sk & ((1 << idx_bits) - 1)
+    seg = sk >> idx_bits
+    # gather the sorted points from a table with an identity row (index n)
+    # for digit 0 and a negated copy of y for negative signed digits
+    ident = C.g1_identity((1,), dev)
+    xs, ys, zs = (torch.cat([c, e]) for c, e in zip(pts_pad, ident))
+    gidx = torch.where(seg == 0, n, order)
+    ygidx = gidx
+    if neg is not None:
+        ys = torch.cat([ys, F.neg(ys, F.FQ)])
+        ygidx = gidx + (n + 1) * (torch.gather(neg, 1, order) & (seg != 0))
+    cur = G1(xs[gidx], ys[ygidx], zs[gidx])
+    del xs, ys, zs, gidx, ygidx, order
+
+    buckets = C.g1_identity((nwin, nbuckets), dev)
+    bvals = torch.arange(nbuckets, device=dev).expand(nwin, nbuckets).contiguous()
+    while cur.x.shape[1] > 1:
+        even = G1(*(c[:, 0::2] for c in cur))
+        odd = G1(*(c[:, 1::2] for c in cur))
+        seg_e, seg_o = seg[:, 0::2], seg[:, 1::2]
+        same = seg_e == seg_o
+        # same ? odd + even : odd (the complete add is symmetric in p, q)
+        cur = C.g1_add_select(same, odd, even)
+        # a pair crossing a run boundary completes seg_e's run: flush it
+        buckets = _flush_into(buckets, even, seg_e, ~same, bvals)
+        seg = seg_o
+    # the last surviving run per row
+    buckets = _flush_into(buckets, cur, seg, torch.ones_like(seg, dtype=torch.bool), bvals)
+
+    # pad the bucket count to a power of two with identities for the scan
+    npad = 1 << max(1, (nbuckets - 1).bit_length())
+    if npad != nbuckets:
+        ext = C.g1_identity((nwin, npad - nbuckets), dev)
+        buckets = G1(*(torch.cat([b, e], dim=1) for b, e in zip(buckets, ext)))
+    # weighted bucket aggregation: sum_b b S_b = sum_{b >= 1} suffix_b
+    suffix = _g1_suffix_scan(G1(*(c.transpose(0, 1) for c in buckets)))  # (npad, nwin)
+    return C.g1_tree_sum(G1(*(c[1:] for c in suffix)))  # (nwin,)
+
+
+def _horner_combine(totals: G1, window: int) -> G1:
+    """sum_w 2^(w * window) totals_w, most significant window first (kernel
+    K6 on CUDA tensors)."""
+    out = horner_combine(G1(*(c.unsqueeze(0) for c in totals)), window)
+    return G1(*(c[0] for c in out))
+
+
+def _g1_suffix_scan(buckets: G1) -> G1:
+    """Suffix sums S'_b = sum_{c >= b} S_c along axis 0 (a power of two):
+    the work-efficient Blelloch scan of the JAX package on the reversed
+    axis, up-sweep, down-sweep, then the inclusive combine."""
+    n = buckets.x.shape[0]
+    assert n & (n - 1) == 0, "bucket count is a power of two"
+    dev = buckets.x.device
+    orig = G1(*(c.flip(0) for c in buckets))
+    x = [c.clone() for c in orig]
+    logn = n.bit_length() - 1
+    for d in range(logn):  # up-sweep: block end += block middle
+        m = 2 << d
+        left = torch.arange(m // 2 - 1, n, m, device=dev)
+        right = left + m // 2
+        s = C.g1_add(G1(*(c[left] for c in x)), G1(*(c[right] for c in x)))
+        for c, v in zip(x, s):
+            c[right] = v
+    ident = C.g1_identity((), dev)
+    for c, v in zip(x, ident):  # root <- identity
+        c[n - 1] = v
+    for d in range(logn - 1, -1, -1):  # down-sweep
+        m = 2 << d
+        left = torch.arange(m // 2 - 1, n, m, device=dev)
+        right = left + m // 2
+        lv, rv = G1(*(c[left] for c in x)), G1(*(c[right] for c in x))
+        s = C.g1_add(lv, rv)
+        for c, r, v in zip(x, rv, s):
+            c[left] = r
+            c[right] = v
+    incl = C.g1_add(G1(*x), orig)  # exclusive prefix of the reversed axis + itself
+    return G1(*(c.flip(0) for c in incl))

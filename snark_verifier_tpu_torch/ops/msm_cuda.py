@@ -1,5 +1,6 @@
 """Kernel K4, the batched small MSM by point scan, with its plain version and
-the batched MSM built on it (``msm_batched_fused``).
+the batched MSM built on it (``msm_batched_fused``); kernel K6, the Horner
+window combine of the large MSM, with its plain version.
 
 K4 (``csrc/msm.cu``) replaces ``snark_verifier_tpu/ops/msm_pallas.py``
 ``_scan_kernel_body`` (``_scan_call``, driven by ``msm_batched_fused``): one
@@ -13,6 +14,13 @@ The tables T_k = k * P (k = 0..8) are built with the same ladder as
 tensors), laid out ``(9, 3, n, B, 16)``.  ``msm_scan_plain`` runs the same
 point operations in the same order as the kernel, so the two agree limb for
 limb on the same tables.
+
+K6 (``csrc/msm.cu``) replaces ``curve_pallas.py`` ``_horner_w_kernel``
+(``horner_combine_pallas``): sum_w 2^(w * window) T_w over the per-window
+bucket totals of ``msm.msm_serial``, one accumulator per MSM.
+``horner_combine_plain`` is the JAX package's CPU reference scan
+(``msm._horner_combine``): from the identity, ``window`` doublings and one
+add per window, most significant first; the kernel runs the same operations.
 """
 
 from __future__ import annotations
@@ -28,7 +36,7 @@ from snark_verifier_tpu_torch.ops import field as F
 from snark_verifier_tpu_torch.ops.curve import G1
 from snark_verifier_tpu_torch.ops.curve_cuda import g1_add_plain, g1_double_plain
 from snark_verifier_tpu_torch.ops.field import LIMB_BITS, NLIMB
-from snark_verifier_tpu_torch.ops.field_cuda import _aligned, field_arg, stream_of
+from snark_verifier_tpu_torch.ops.field_cuda import _aligned, check_limbs, field_arg, stream_of
 
 WINDOW = 4
 NWINDOWS = (NLIMB * LIMB_BITS) // WINDOW  # 64 signed 4-bit windows
@@ -135,3 +143,43 @@ def msm_batched_fused(points: G1, scalars_canon, nwindows: int = NWINDOWS) -> G1
     digits = signed_digits(scalars_canon.reshape(B, n, NLIMB))[..., :nwindows]
     acc = msm_scan(table, digits)
     return G1(*(c.reshape(*batch_shape, NLIMB) for c in acc))
+
+
+def horner_combine_plain(totals: G1, window: int) -> G1:
+    """Plain version of K6.  totals: (B, nwin) point batch, window 0 least
+    significant -> (B,) sum_w 2^(w * window) T_w."""
+    batch, nwin = totals.batch_shape
+    acc = C.g1_identity((batch,), totals.x.device)
+    for w in range(nwin - 1, -1, -1):
+        for _ in range(window):
+            acc = g1_double_plain(acc)
+        acc = g1_add_plain(acc, G1(*(c[:, w] for c in totals)))
+    return acc
+
+
+def horner_combine(totals: G1, window: int) -> G1:
+    """Horner window combine of a batch of MSMs.  CUDA tensors launch K6
+    (one thread per MSM); CPU tensors take ``horner_combine_plain``.
+    Shapes as in ``horner_combine_plain``."""
+    check_limbs("horner_combine", *totals)
+    if totals.x.dim() != 3 or any(c.shape != totals.x.shape for c in totals):
+        raise ValueError(f"horner_combine: totals must be three (B, nwin, {NLIMB}) tensors")
+    if not 1 <= window <= 32:
+        raise ValueError(f"horner_combine: window must be in 1..32, got {window}")
+    if not use_kernel(*totals):
+        return horner_combine_plain(totals, window)
+    batch, nwin, _ = totals.x.shape
+    ins = [_aligned(c) for c in totals]
+    outs = [torch.empty(batch, NLIMB, dtype=torch.int64, device=ins[0].device) for _ in range(3)]
+    with torch.cuda.device(ins[0].device):
+        code = _build.library().svtpu_horner_combine(
+            *(t.data_ptr() for t in ins), *(o.data_ptr() for o in outs),
+            batch, nwin, window, field_arg(F.FQ), BLOCK, stream_of(ins[0]),
+        )
+    _build.check(code, "horner_combine")
+    if batch and nwin:
+        horner_combine.launches += 1
+    return G1(*outs)
+
+
+horner_combine.launches = 0

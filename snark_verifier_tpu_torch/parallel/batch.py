@@ -1,10 +1,12 @@
 """Batched device verification: the loader-generic succinct PLONK verifier,
-specialised to one protocol and run over a batch of proofs.
+specialised to one protocol and run over a batch of proofs, and the batch
+decider that folds the batch's accumulators into one pairing check.
 
 Counterpart of ``snark_verifier_tpu/parallel/batch.py``.  Where the JAX
 package traces ``build_verifier``'s function into one XLA computation, the
 port runs it eagerly: one pass of the verifier over (B, ...) tensors, with
-the hand-written kernels underneath.
+the hand-written kernels underneath.  Every entry point runs on the card
+unless the caller asks for another device.
 """
 
 from __future__ import annotations
@@ -12,30 +14,31 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from snark_verifier_tpu.ops.limbs import ints_to_limbs, limbs_to_int
-from snark_verifier_tpu.verifier.plonk import PlonkSuccinctVerifier
 from snark_verifier_tpu_torch.loader.torch_loader import TorchLoader
 from snark_verifier_tpu_torch.ops import field as F
+from snark_verifier_tpu_torch.ops import msm as MSM
+from snark_verifier_tpu_torch.ops import pairing as PAIR
+from snark_verifier_tpu_torch.ops.curve import G1
+from snark_verifier_tpu_torch.ops.limbs import ints_to_limbs, limbs_to_int
 from snark_verifier_tpu_torch.system.halo2.transcript_torch import TorchEvmTranscript
+from snark_verifier_tpu_torch.verifier.plonk import PlonkSuccinctVerifier
 
 FR = F.FR
 
 
-def build_verifier(protocol, As, svk, device="cpu", decide_dk=None, transcript_kind: str = "evm"):
+def build_verifier(protocol, As, svk, device="cuda", decide_dk=None, transcript_kind: str = "evm"):
     """Returns ``fn(proof_bytes, instances) -> result dict``.
 
     proof_bytes: (B, L) int64 byte values; instances: (B, total, 16)
     canonical Fr limbs (columns flattened in order); both on ``device``.
     Output: ``lhs_x, lhs_y, rhs_x, rhs_y`` (B, 16) canonical Fq limbs of the
     accumulator pair (a leading axis per accumulator when there are several),
-    and ``ok`` (B,), the per-proof validity mask."""
-    if decide_dk is not None:
-        raise NotImplementedError(
-            "the pairing decide is the next slice: ROADMAP.md section 1, item 1"
-        )
+    and ``ok`` (B,), the per-proof validity mask.  With ``decide_dk`` (a
+    ``KzgDecidingKey``), every accumulator's pairing check runs per proof
+    and folds into ``ok``."""
     if transcript_kind != "evm":
         raise NotImplementedError(
-            "the Poseidon transcript is not ported yet: ROADMAP.md section 1, item 2"
+            "the Poseidon transcript is not ported yet: ROADMAP.md section 1, item 1"
         )
     verifier = PlonkSuccinctVerifier(As)
     num_instance = protocol.num_instance
@@ -56,6 +59,9 @@ def build_verifier(protocol, As, svk, device="cpu", decide_dk=None, transcript_k
         transcript = TorchEvmTranscript(proof_bytes, loader)
         proof = verifier.read_proof(svk, loaded, cols, transcript)
         accumulators = verifier.verify(svk, loaded, cols, proof)
+        if decide_dk is not None:
+            for acc in accumulators:
+                loader.decide_pairing(acc, decide_dk)
 
         def coords(acc):
             lhs = acc.lhs.value.as_affine()
@@ -79,7 +85,7 @@ def build_verifier(protocol, As, svk, device="cpu", decide_dk=None, transcript_k
     return verify_fn
 
 
-def pack_proofs(proof_bytes_list, device="cpu"):
+def pack_proofs(proof_bytes_list, device="cuda"):
     """Host: list of equal-length proof byte strings -> (B, L) int64 tensor."""
     L = len(proof_bytes_list[0])
     if any(len(p) != L for p in proof_bytes_list):
@@ -88,11 +94,40 @@ def pack_proofs(proof_bytes_list, device="cpu"):
     return torch.as_tensor(arr.astype(np.int64), device=device)
 
 
-def pack_instances(instances_list, device="cpu"):
+def pack_instances(instances_list, device="cuda"):
     """Host: list (per proof) of per-column int lists -> (B, total, 16) int64."""
     flat = [[v for col in ins for v in col] for ins in instances_list]
     arr = np.stack([ints_to_limbs(row) for row in flat]).astype(np.int64)
     return torch.as_tensor(arr, device=device)
+
+
+def to_g1(cx, cy):
+    """Canonical affine (B, 16) coordinates -> projective Montgomery G1; the
+    all-zero pair (0, 0) is the identity."""
+    inf = F.is_zero(cx) & F.is_zero(cy)
+    shape, dev = inf.shape, inf.device
+    y = F.select(inf, F.ones(shape, F.FQ, dev), F.to_mont(cy, F.FQ))
+    z = F.select(inf, F.zeros(shape, dev), F.ones(shape, F.FQ, dev))
+    return G1(F.to_mont(cx, F.FQ), y, z)
+
+
+def build_batch_decider(dk, device="cuda"):
+    """Returns ``fn(lhs_x, lhs_y, rhs_x, rhs_y, fold_scalars) -> ok``, a
+    0-dim bool tensor: the batch decide of the JAX package's
+    ``build_batch_decider``.  The B accumulators (canonical affine
+    coordinates from ``build_verifier``) fold by a random linear
+    combination, two B-term MSMs with ``fold_scalars`` (B, 16) canonical Fr,
+    then ONE pairing check decides them all.  All inputs on ``device``."""
+    device = torch.device(device)
+
+    def decide_fn(lhs_x, lhs_y, rhs_x, rhs_y, fold_scalars):
+        if any(t.device != device for t in (lhs_x, lhs_y, rhs_x, rhs_y, fold_scalars)):
+            raise ValueError(f"inputs must be on {device}")
+        lhs = MSM.msm_serial(to_g1(lhs_x, lhs_y), fold_scalars)
+        rhs = MSM.msm_serial(to_g1(rhs_x, rhs_y), fold_scalars)
+        return PAIR.kzg_pairing_check(lhs, rhs, dk.g2, dk.s_g2)
+
+    return decide_fn
 
 
 def decode_accumulator(result, index=0):

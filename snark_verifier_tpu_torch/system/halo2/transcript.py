@@ -1,0 +1,94 @@
+"""EVM (Keccak-256) transcript, native interpreter.
+
+Byte-format parity with the reference's `EvmTranscript` over NativeLoader
+(system/halo2/transcript/evm.rs:159-268, write side :371-399):
+
+* the proof stream is big-endian: scalars are 32-byte BE Fr, points are
+  uncompressed `x || y`, each 32-byte BE Fq (identity is not encodable);
+* absorbing appends the same BE bytes to the running buffer;
+* squeezing hashes the buffer with keccak256 — prefixed by the 0x01
+  domain-separation byte iff the buffer is exactly one stale 32-byte hash —
+  resets the buffer to the digest, and reduces the digest (as a BE integer)
+  mod r.
+"""
+
+from __future__ import annotations
+
+import io
+
+from snark_verifier_tpu_torch.errors import TranscriptError
+from snark_verifier_tpu_torch.loader import EcPoint, Scalar
+from snark_verifier_tpu_torch.loader.native import NativeLoader
+from snark_verifier_tpu_torch.util import bn254
+from snark_verifier_tpu_torch.util.keccak import keccak256
+from snark_verifier_tpu_torch.util.transcript import TranscriptRead, TranscriptWrite
+
+
+class NativeEvmTranscript(TranscriptRead, TranscriptWrite):
+    """Read or write side over a byte stream, python-int backend."""
+
+    def __init__(self, stream: bytes | bytearray | None = None, loader: NativeLoader | None = None):
+        self._loader = loader or NativeLoader()
+        self.stream = io.BytesIO(stream if stream is not None else b"")
+        self.buf = bytearray()
+
+    def loader(self):
+        return self._loader
+
+    # -- transcript core ----------------------------------------------------
+    def squeeze_challenge(self) -> Scalar:
+        data = bytes(self.buf)
+        if len(self.buf) == 0x20:
+            data += b"\x01"
+        digest = keccak256(data)
+        self.buf = bytearray(digest)
+        return self._loader.load_const(int.from_bytes(digest, "big") % bn254.R)
+
+    def common_scalar(self, scalar: Scalar):
+        self.buf += scalar.value.to_bytes(32, "big")
+
+    def common_ec_point(self, ec_point: EcPoint):
+        if ec_point.value is None:
+            raise TranscriptError("cannot absorb the identity point")
+        x, y = ec_point.value
+        self.buf += x.to_bytes(32, "big") + y.to_bytes(32, "big")
+
+    # -- read side ----------------------------------------------------------
+    def read_scalar(self) -> Scalar:
+        data = self.stream.read(32)
+        if len(data) != 32:
+            raise TranscriptError("unexpected end of proof stream")
+        value = int.from_bytes(data, "big")
+        if value >= bn254.R:
+            raise TranscriptError("invalid scalar encoding in proof")
+        scalar = self._loader.load_const(value)
+        self.common_scalar(scalar)
+        return scalar
+
+    def read_ec_point(self) -> EcPoint:
+        data = self.stream.read(64)
+        if len(data) != 64:
+            raise TranscriptError("unexpected end of proof stream")
+        x = int.from_bytes(data[:32], "big")
+        y = int.from_bytes(data[32:], "big")
+        if x >= bn254.P or y >= bn254.P:
+            raise TranscriptError("invalid coordinate encoding in proof")
+        if not bn254.g1_is_on_curve((x, y)):
+            raise TranscriptError("point is not on the curve")
+        pt = EcPoint(self._loader, (x, y))
+        self.common_ec_point(pt)
+        return pt
+
+    # -- write side ----------------------------------------------------------
+    def write_scalar(self, scalar: Scalar):
+        self.common_scalar(scalar)
+        self.stream.write(scalar.value.to_bytes(32, "big"))
+
+    def write_ec_point(self, ec_point: EcPoint):
+        self.common_ec_point(ec_point)
+        x, y = ec_point.value
+        self.stream.write(x.to_bytes(32, "big") + y.to_bytes(32, "big"))
+
+    def finalize(self) -> bytes:
+        return self.stream.getvalue()
+

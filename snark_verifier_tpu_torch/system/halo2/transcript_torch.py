@@ -11,13 +11,13 @@ from __future__ import annotations
 
 import torch
 
-from snark_verifier_tpu.loader import EcPoint, Scalar
-from snark_verifier_tpu.util.transcript import TranscriptRead
+from snark_verifier_tpu_torch.loader import EcPoint, Scalar
 from snark_verifier_tpu_torch.loader.torch_loader import TorchLoader, TorchPoint
 from snark_verifier_tpu_torch.ops import curve as CRV
 from snark_verifier_tpu_torch.ops import encode as ENC
 from snark_verifier_tpu_torch.ops import field as F
 from snark_verifier_tpu_torch.ops import keccak as K
+from snark_verifier_tpu_torch.util.transcript import TranscriptRead
 
 FR, FQ = F.FR, F.FQ
 

@@ -51,12 +51,12 @@ def test_g1_add_matches_jax_and_pallas_body(operands, second_level):
     ps, qs, jp, jq, jr = operands
     a = jr if second_level else jp
     want_xla = JC._g1_add_xla(a, jq)
-    assert_same_point(C.g1_add(g1_from_numpy(a), g1_from_numpy(jq)), want_xla)
-    assert_same_point(CK.g1_add_plain(g1_from_numpy(a), g1_from_numpy(jq)), want_xla)
+    assert_same_point(C.g1_add(g1_from_numpy(a, "cpu"), g1_from_numpy(jq, "cpu")), want_xla)
+    assert_same_point(CK.g1_add_plain(g1_from_numpy(a, "cpu"), g1_from_numpy(jq, "cpu")), want_xla)
     want_body = untransposed(JCP.g1_add_t(transposed(a), transposed(jq)))
-    assert_same_point(C.g1_add(g1_from_numpy(a), g1_from_numpy(jq)), want_body)
+    assert_same_point(C.g1_add(g1_from_numpy(a, "cpu"), g1_from_numpy(jq, "cpu")), want_body)
     if not second_level:
-        got = C.g1_to_affine_ints(C.g1_add(g1_from_numpy(jp), g1_from_numpy(jq)))
+        got = C.g1_to_affine_ints(C.g1_add(g1_from_numpy(jp, "cpu"), g1_from_numpy(jq, "cpu")))
         assert got == [bn254.g1_add(p, q) for p, q in zip(ps, qs)]
 
 
@@ -64,7 +64,7 @@ def test_g1_add_matches_jax_and_pallas_body(operands, second_level):
 def test_g1_double_matches_jax_and_pallas_body(operands, second_level):
     ps, _, jp, _, jr = operands
     a = jr if second_level else jp
-    got = C.g1_double(g1_from_numpy(a))
+    got = C.g1_double(g1_from_numpy(a, "cpu"))
     assert_same_point(got, JC._g1_double_xla(a))
     assert_same_point(got, untransposed(JCP.g1_double_t(transposed(a))))
     if not second_level:
@@ -76,7 +76,7 @@ def test_add_select_matches_jax_and_pallas_body(operands):
     and the CPU branch of g1_add_select_t (the _add_select_kernel body)."""
     _, _, jp, jq, jr = operands
     cond = np.arange(N) % 3 != 1
-    p, q, r = g1_from_numpy(jp), g1_from_numpy(jq), g1_from_numpy(jr)
+    p, q, r = g1_from_numpy(jp, "cpu"), g1_from_numpy(jq, "cpu"), g1_from_numpy(jr, "cpu")
     tcond = torch.as_tensor(cond)
     got = C.g1_add_select(tcond, r, q)
     assert_same_point(got, JC.g1_add_select(cond, jr, jq))
@@ -87,7 +87,7 @@ def test_add_select_matches_jax_and_pallas_body(operands):
 
 def test_normalize_on_curve_eq_tree_sum_match_jax(operands):
     ps, qs, jp, jq, jr = operands
-    r = g1_from_numpy(jr)
+    r = g1_from_numpy(jr, "cpu")
     assert_same_point(C.g1_normalize(r), JC.g1_normalize(jr))
     np.testing.assert_array_equal(C.g1_is_on_curve(r).numpy(), np.asarray(JC.g1_is_on_curve(jr)))
     off = C.G1(r.x, C.F.add(r.y, r.z, C.FQ), r.z)  # y + z: off the curve unless z = 0
@@ -96,7 +96,7 @@ def test_normalize_on_curve_eq_tree_sum_match_jax(operands):
     # eq: the projective sum against its normalized form, and against P
     norm = C.g1_normalize(r)
     np.testing.assert_array_equal(C.g1_eq(r, norm).numpy(), np.asarray(JC.g1_eq(jr, JC.g1_normalize(jr))))
-    np.testing.assert_array_equal(C.g1_eq(r, g1_from_numpy(jp)).numpy(), np.asarray(JC.g1_eq(jr, jp)))
+    np.testing.assert_array_equal(C.g1_eq(r, g1_from_numpy(jp, "cpu")).numpy(), np.asarray(JC.g1_eq(jr, jp)))
     assert_same_point(C.g1_tree_sum(r, 0), JC.g1_tree_sum(jr, 0))
     assert_same_point(C.g1_neg(r), JC.g1_neg(jr))
     assert C.g1_to_affine_ints(C.G1(*(c[None] for c in C.g1_tree_sum(r, 0)))) == [

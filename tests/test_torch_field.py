@@ -32,7 +32,7 @@ def edge_ints(modulus):
 def both(spec, values):
     """Montgomery limbs of ``values`` as (numpy for JAX, tensor for the port)."""
     arr = spec.encode(values)
-    return arr, limbs_to_tensor(arr)
+    return arr, limbs_to_tensor(arr, "cpu")
 
 
 def assert_same(got_tensor, want_jax):
@@ -78,7 +78,7 @@ def test_mont_mul_matches_jax(specs):
     wild_a = rng.integers(0, 1 << 16, (32, NLIMB)).astype(np.uint32)
     wild_b = rng.integers(0, 1 << 16, (32, NLIMB)).astype(np.uint32)
     wild_a[0] = 0xFFFF
-    assert_same(F.mont_mul(limbs_to_tensor(wild_a), limbs_to_tensor(wild_b), spec), JF.mont_mul(wild_a, wild_b, jspec))
+    assert_same(F.mont_mul(limbs_to_tensor(wild_a, "cpu"), limbs_to_tensor(wild_b, "cpu"), spec), JF.mont_mul(wild_a, wild_b, jspec))
     # leading batch dims and broadcasting
     assert_same(F.mont_mul(ta.reshape(4, 8, NLIMB), tb[:8], spec), JF.mont_mul(ja.reshape(4, 8, NLIMB), jb[:8], jspec))
 
@@ -104,7 +104,7 @@ def test_to_from_mont_match_jax():
     spec = F.FR
     vals = rand_ints(6, spec.modulus, 8)
     canon = np.stack([int_to_limbs(v) for v in vals])
-    mont = F.to_mont(limbs_to_tensor(canon), spec)
+    mont = F.to_mont(limbs_to_tensor(canon, "cpu"), spec)
     assert_same(mont, JF.to_mont(canon, JF.FR))
     assert_same(F.from_mont(mont, spec), JF.from_mont(np.asarray(JF.to_mont(canon, JF.FR)), JF.FR))
     np.testing.assert_array_equal(tensor_to_limbs(F.from_mont(mont, spec)), canon)
@@ -137,8 +137,8 @@ def test_constants_selects_and_sums_match_jax():
     (ja, ta), (jb, tb) = both(spec, vals), both(spec, other)
     assert_same(F.ones((3,), spec, "cpu"), JF.ones((3,), jspec))
     assert_same(F.zeros((3,), "cpu"), JF.zeros((3,)))
-    assert_same(F.constant(12345, spec, (2,)), JF.constant(12345, jspec, (2,)))
-    assert_same(F.constant(-1, spec), JF.constant(-1, jspec))
+    assert_same(F.constant(12345, spec, (2,), "cpu"), JF.constant(12345, jspec, (2,)))
+    assert_same(F.constant(-1, spec, (), "cpu"), JF.constant(-1, jspec))
     np.testing.assert_array_equal(F.is_zero(ta).numpy(), np.asarray(JF.is_zero(ja)))
     np.testing.assert_array_equal(F.eq(ta, tb).numpy(), np.asarray(JF.eq(ja, jb)))
     cond = np.arange(8) % 3 == 0

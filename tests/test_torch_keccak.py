@@ -43,5 +43,5 @@ def test_encode_helpers_match_jax():
             tensor_to_limbs(E.reduce_u256(limbs, spec)), np.asarray(JE.reduce_u256(jl, jspec))
         )
         np.testing.assert_array_equal(E.is_lt_modulus(limbs, spec).numpy(), np.asarray(JE.is_lt_modulus(jl, jspec)))
-    mod = limbs_to_tensor(F.FR.mod_limbs[None])
+    mod = limbs_to_tensor(F.FR.mod_limbs[None], "cpu")
     assert not bool(E.is_lt_modulus(mod, F.FR)[0])

@@ -46,7 +46,7 @@ def test_signed_digits_match_pallas():
     rng = np.random.default_rng(3)
     vals = [int.from_bytes(rng.bytes(32), "little") % bn254.R for _ in range(33)] + [0, 1, bn254.R - 1]
     limbs = ints_to_limbs(vals)
-    got = MK.signed_digits(limbs_to_tensor(limbs)).numpy()
+    got = MK.signed_digits(limbs_to_tensor(limbs, "cpu")).numpy()
     np.testing.assert_array_equal(got, np.asarray(MP.signed_digits(limbs)))
     assert got.min() >= -8 and got.max() <= 8
     for s, row in zip(vals, got):
@@ -68,7 +68,7 @@ def test_msm_fused_matches_jax_fused(small_tier):
     B = 3 proofs of n = 8 terms."""
     B, n = 3, 8
     jg, scal, want = case(100 * B + n, B, n, scalar_bits=32)
-    got = MK.msm_batched_fused(g1_from_numpy(jg), limbs_to_tensor(scal), 9)
+    got = MK.msm_batched_fused(g1_from_numpy(jg, "cpu"), limbs_to_tensor(scal, "cpu"), 9)
     jax_out = MP.msm_batched_fused(jg, scal, 9)
     assert C.g1_to_affine_ints(got) == JC.g1_to_affine_ints(jax_out) == want
 
@@ -82,13 +82,13 @@ def full_width():
 
 def test_msm_batched_matches_jax(full_width):
     jg, scal, want, jax_out = full_width
-    got = M.msm_batched(g1_from_numpy(jg), limbs_to_tensor(scal))
+    got = M.msm_batched(g1_from_numpy(jg, "cpu"), limbs_to_tensor(scal, "cpu"))
     assert C.g1_to_affine_ints(got) == JC.g1_to_affine_ints(jax_out) == want
 
 
 def test_msm_windowed_matches_jax_limb_for_limb(full_width):
     jg, scal, want, jax_out = full_width
-    got = M.msm_batched_windowed(g1_from_numpy(jg), limbs_to_tensor(scal))
+    got = M.msm_batched_windowed(g1_from_numpy(jg, "cpu"), limbs_to_tensor(scal, "cpu"))
     for g, w in zip(g1_to_numpy(got), jax_out):
         np.testing.assert_array_equal(g, np.asarray(w))
 
@@ -97,7 +97,7 @@ def test_msm_full_windows_oracle_and_scalar_mul():
     """All 64 windows at B = 2, n = 3, and scalar_mul, against the oracle;
     the scan's plain version on tables from the ladder."""
     jg, scal, want = case(12, 2, 3)
-    pts, s = g1_from_numpy(jg), limbs_to_tensor(scal)
+    pts, s = g1_from_numpy(jg, "cpu"), limbs_to_tensor(scal, "cpu")
     assert C.g1_to_affine_ints(M.msm_batched(pts, s)) == want
     one = C.G1(*(c[:, 1] for c in pts))
     got = M.scalar_mul(one, s[:, 1])

@@ -1,0 +1,153 @@
+"""The port's large MSM (snark_verifier_tpu_torch/ops/msm.py msm_serial and
+its parts; kernels K5 and K6 through their plain versions) against the JAX
+package's ops/msm.py and ops/curve.py on the CPU, and its python-int oracle.
+
+The JAX package's jitted msm_serial takes minutes to compile on the CPU, so
+the whole MSM is held against the oracle, and against the JAX package part
+by part: the digit decompositions, one run of the bucket accumulation
+(``_bucket_totals``) at a small shape, the Horner combine and the fused add
+with a select, all limb for limb.  Tolerance 0 everywhere.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from snark_verifier_tpu.ops import curve as JC
+from snark_verifier_tpu.ops import msm as JM
+from snark_verifier_tpu.ops.limbs import ints_to_limbs
+from snark_verifier_tpu.util import bn254
+from snark_verifier_tpu_torch.ops import curve as C
+from snark_verifier_tpu_torch.ops import curve_cuda as CK
+from snark_verifier_tpu_torch.ops import msm as M
+from snark_verifier_tpu_torch.ops import msm_cuda as MK
+from snark_verifier_tpu_torch.ops.convert import g1_from_numpy, g1_to_numpy, ints_to_tensor
+
+
+def rand_case(seed, n):
+    rng = np.random.default_rng(seed)
+    pts = [bn254.g1_mul(bn254.G1_GEN, int(rng.integers(1, 1 << 62))) for _ in range(n)]
+    scalars = [int.from_bytes(rng.bytes(32), "little") % bn254.R for _ in range(n)]
+    return pts, scalars
+
+
+def assert_limbs(got, want):
+    for g, w in zip(g1_to_numpy(got), want):
+        np.testing.assert_array_equal(g, np.asarray(w))
+
+
+def port_msm(pts, scalars, window, signed=False):
+    out = M.msm_serial(C.g1_from_affine_ints(pts, "cpu"), ints_to_tensor(scalars, "cpu"), window, signed)
+    return C.g1_to_affine_ints(C.G1(*(c[None] for c in out)))[0]
+
+
+CASES = {
+    # name: (seed, n, window, signed, edit)
+    "w4_n37": (1, 37, 4, False, None),  # n not a power of two (window 8: test_torch_decide.py)
+    "w5_signed_straddling": (2, 9, 5, True, None),  # windows straddle 16-bit limbs
+    "equal_points_collide": (3, 6, 5, False, "collide"),
+    "all_equal_scalars": (4, 50, 5, True, "all_equal"),
+}
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_msm_serial_matches_oracle(name):
+    seed, n, window, signed, edit = CASES[name]
+    pts, scalars = rand_case(seed, n)
+    if edit == "collide":
+        pts = [pts[0]] * n
+        scalars = [7, 7, 7, 9, 9, bn254.R - 1]
+    elif edit == "all_equal":
+        scalars = [123456789] * n  # one giant digit run per window
+    scalars[0] = 0 if edit is None else scalars[0]
+    assert port_msm(pts, scalars, window, signed) == bn254.g1_msm(scalars, pts)
+
+
+@pytest.mark.parametrize("window,signed", [(8, False), (5, False), (5, True), (11, True)])
+def test_window_digits_match_jax(window, signed):
+    _, scalars = rand_case(5, 12)
+    scalars[:3] = [0, 1, bn254.R - 1]
+    limbs = ints_to_limbs(scalars)
+    nwin = (256 + window - 1) // window
+    t = ints_to_tensor(scalars, "cpu")
+    if signed:
+        got, want = M._signed_window_digits(t, window, nwin), JM._signed_window_digits(jnp.asarray(limbs), window, nwin)
+        for s, row in zip(scalars, got.tolist()):
+            assert sum(d << (window * w) for w, d in enumerate(row)) == s
+    else:
+        got, want = M._window_digits(t, window, nwin), JM._window_digits(jnp.asarray(limbs), window, nwin, 1 << window)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want).astype(np.int64))
+
+
+def test_bucket_totals_match_jax_limb_for_limb():
+    """One whole bucket accumulation (sort, tree, flushes, suffix scan, tree
+    sum) at nwin = 3 windows of n = 8 points, signed 2-bit digits (3
+    buckets) with runs that straddle pair boundaries, one run over a whole
+    window, zero digits and negated points."""
+    pts, _ = rand_case(6, 7)
+    pts.append(None)  # an identity pad point
+    dig = np.array([[1, 1, 1, 0, 2, 2, 1, 0], [2, 2, 2, 2, 2, 2, 2, 2], [2, 0, 1, 2, 2, 1, 1, 2]], np.uint32)
+    neg = np.array([[0, 1, 0, 0, 1, 1, 0, 0], [1, 0, 1, 0, 1, 0, 1, 0], [0, 0, 0, 1, 1, 0, 0, 0]], bool)
+    jp = JC.g1_from_affine_ints(pts)
+    want = JM._bucket_totals(jp, jnp.asarray(dig), 3, jnp.asarray(neg))
+    got = M._bucket_totals(g1_from_numpy(jp, "cpu"), torch.as_tensor(dig.astype(np.int64)), 3, torch.as_tensor(neg))
+    assert_limbs(got, want)
+
+
+def test_horner_combine_plain_matches_jax_limb_for_limb():
+    pts, _ = rand_case(7, 5)
+    jt = JC.g1_from_affine_ints(pts)
+    want = JM._horner_combine(jt, 5)
+    got = M._horner_combine(g1_from_numpy(jt, "cpu"), 5)
+    assert_limbs(got, want)
+    batched = MK.horner_combine(C.G1(*(torch.stack([c, c.flip(0)]) for c in g1_from_numpy(jt, "cpu"))), 5)
+    assert_limbs(C.G1(*(c[0] for c in batched)), want)
+    assert C.g1_to_affine_ints(C.G1(*(c[1:] for c in batched))) == [
+        bn254.g1_msm([1 << (5 * w) for w in range(5)], pts[::-1])
+    ]
+    assert MK.horner_combine.launches == 0
+    with pytest.raises(ValueError):
+        MK.horner_combine(C.G1(*(c[0] for c in batched)), 5)
+
+
+def test_g1_add_select_plain_matches_jax_limb_for_limb():
+    """Random mask over identity, P + P, P + (-P) and generic rows, with a
+    projective (z != 1) first operand."""
+    pts, _ = rand_case(8, 6)
+    ps = [None, pts[1], pts[2], pts[3], pts[4], pts[5]]
+    qs = [pts[0], pts[1], bn254.g1_neg(pts[2]), None, pts[0], pts[1]]
+    cond = np.array([True, True, True, True, False, True])
+    jp, jq = JC.g1_from_affine_ints(ps), JC.g1_from_affine_ints(qs)
+    jp = JC.g1_add(jp, jq)
+    want = JC.g1_add_select(jnp.asarray(cond), jp, jq)
+    p, q, c = g1_from_numpy(jp, "cpu"), g1_from_numpy(jq, "cpu"), torch.as_tensor(cond)
+    assert_limbs(C.g1_add_select(c, p, q), want)
+    assert_limbs(CK.g1_add_select_plain(c, p, q), want)
+    assert CK.g1_add_select.launches == 0
+    with pytest.raises(ValueError):
+        CK.g1_add_select(c.long(), p, q)
+
+
+def test_tree_sum_matches_jax_limb_for_limb():
+    pts, _ = rand_case(9, 7)
+    jp = JC.g1_from_affine_ints(pts)
+    assert_limbs(C.g1_tree_sum(g1_from_numpy(jp, "cpu")), JC.g1_tree_sum(jp))
+
+
+def test_flush_invariant_check(monkeypatch):
+    """With the check on, msm_serial runs it at every level and passes; it
+    rejects unsorted runs and a run with two completion markers."""
+    monkeypatch.setattr(M, "CHECK_FLUSH", True)
+    calls = []
+    real = M._check_flush_invariant
+    monkeypatch.setattr(M, "_check_flush_invariant", lambda s, v: (calls.append(1), real(s, v)))
+    pts, scalars = rand_case(10, 5)
+    assert port_msm(pts, scalars, 4) == bn254.g1_msm(scalars, pts)
+    assert len(calls) == 4  # 3 tree levels at n = 8, then the last runs
+    seg = torch.tensor([[1, 1, 2, 3]])
+    real(seg, torch.tensor([[False, True, True, True]]))
+    with pytest.raises(AssertionError, match="sorted"):
+        real(torch.tensor([[2, 1, 3, 3]]), torch.tensor([[True, False, False, True]]))
+    with pytest.raises(AssertionError, match="more than one"):
+        real(seg, torch.tensor([[True, True, False, False]]))

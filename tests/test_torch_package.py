@@ -1,9 +1,12 @@
 """Package-level properties of the port (snark_verifier_tpu_torch): it
-imports no JAX, its kernel wrappers route by device and validate their
-inputs, the kernel build goes to the ignored build directory, and
-chip_smoke.py refuses to run without a CUDA card."""
+imports neither JAX nor the JAX package, its copies of JAX-free modules of
+the JAX package equal their originals, its kernel wrappers route by device
+and validate their inputs, the kernel build goes to the ignored build
+directory, and chip_smoke.py refuses to run without a CUDA card."""
 
+import ast
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -21,17 +24,54 @@ from snark_verifier_tpu_torch.ops import curve_cuda as CK
 from snark_verifier_tpu_torch.ops import field as F
 from snark_verifier_tpu_torch.ops import field_cuda as FK
 from snark_verifier_tpu_torch.ops import msm_cuda as MK
+from snark_verifier_tpu_torch.ops import tower_cuda as TC
 
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "snark_verifier_tpu_torch"
+ORIGINAL = REPO / "snark_verifier_tpu"
+
+# The port's copies of JAX-free modules of the JAX package, at the same
+# relative paths -> the top-level definitions of the original that the copy
+# leaves out (the port does not use them).
+COPIES = {
+    "errors.py": (),
+    "util/__init__.py": (),
+    "util/bn254.py": ("fast_msm",),
+    "util/fraction.py": (),
+    "util/msm_symbolic.py": (),
+    "util/transcript.py": (),
+    "util/keccak.py": (),
+    "ops/limbs.py": (),
+    "loader/__init__.py": (),
+    "loader/native.py": (),
+    "verifier/__init__.py": (),
+    "verifier/plonk/__init__.py": (),
+    "verifier/plonk/proof.py": (),
+    "verifier/plonk/protocol.py": (),
+    "verifier/plonk/serialization.py": (),
+    "pcs/__init__.py": (),
+    "pcs/kzg/__init__.py": (),
+    "pcs/kzg/accumulation.py": (),
+    "pcs/kzg/accumulator.py": (),
+    "pcs/kzg/bdfg21.py": (),
+    "pcs/kzg/decider.py": (),
+    "pcs/kzg/gwc19.py": (),
+    "system/__init__.py": (),
+    "system/halo2/__init__.py": (),
+    "system/halo2/transcript.py": (
+        "NativeBlake2bTranscript", "compress_g1", "decompress_g1", "NativePoseidonTranscript",
+    ),
+}
 
 BLOCK_JAX = """
 import importlib, pkgutil, sys
 
+BLOCKED = ("jax", "snark_verifier_tpu")
+
 class BlockJax:
     def find_spec(self, name, path=None, target=None):
-        if name == "jax" or name.startswith("jax."):
-            raise ImportError("jax is blocked: " + name)
+        if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+            raise ImportError("blocked: " + name)
         return None
 
 sys.meta_path.insert(0, BlockJax())
@@ -39,7 +79,10 @@ import snark_verifier_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-assert "jax" not in sys.modules
+import chip_smoke
+from snark_verifier_tpu_torch import entry
+entry.fixture()
+assert not [m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
 print(len(names))
 """
 
@@ -56,7 +99,26 @@ def test_port_imports_no_jax():
         [sys.executable, "-c", BLOCK_JAX], capture_output=True, text=True, env=_env(), cwd=REPO, timeout=300
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 15  # every module of the package
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 40  # every module of the package
+
+
+def _module_nodes(path: Path, drop=()) -> list[str]:
+    """The module's top-level statements as AST dumps (comments are not in
+    the AST), with the port's package name read as the JAX package's, a
+    reference-source path in a docstring reduced to its path inside the
+    reference repo, and the named definitions left out."""
+    text = re.sub(r"\bsnark_verifier_tpu_torch\b", "snark_verifier_tpu", path.read_text())
+    text = re.sub(r"(?:/\S+/)?snark-verifier[/ ]src/", "snark-verifier src/", text)
+    return [ast.dump(n) for n in ast.parse(text).body if getattr(n, "name", None) not in drop]
+
+
+@pytest.mark.parametrize("module", list(COPIES))
+def test_copied_module_equals_its_original(module):
+    """Each copy is its original apart from the package name (imports) and
+    the definitions the port leaves out, so a change to either side fails."""
+    original = _module_nodes(ORIGINAL / module, COPIES[module])
+    assert _module_nodes(PACKAGE / module) == original
+    assert len(_module_nodes(ORIGINAL / module)) == len(original) + len(COPIES[module])
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["in_repo", "alone"])
@@ -83,23 +145,36 @@ def test_build_command_targets_the_ignored_build_dir():
     assert out.name.startswith("libsvtpu_kernels_") and out.suffix == ".so"
     ignored = (REPO / ".gitignore").read_text().split()
     assert "snark_verifier_tpu_torch/build/" in ignored
-    cmd = _build.nvcc_command(out)
-    assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
-    assert {"-O3", "-shared", "-fPIC"} <= set(cmd)
-    assert cmd[cmd.index("-o") + 1] == str(out)
-    assert [Path(c).name for c in cmd if c.endswith(".cu")] == list(_build.KERNEL_SOURCES)
+    objs = [_build.BUILD_DIR / f"{Path(s).stem}.o" for s in _build.KERNEL_SOURCES]
+    for source, obj in zip(_build.KERNEL_SOURCES, objs):  # one nvcc per source
+        cmd = _build.compile_command(source, obj)
+        assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
+        assert {"-O3", "-c", "-fPIC"} <= set(cmd)
+        assert cmd[cmd.index("-o") + 1] == str(obj)
+        assert [Path(c).name for c in cmd if c.endswith(".cu")] == [source]
+    link = _build.link_command(out, objs)
+    assert "-shared" in link and link[link.index("-o") + 1] == str(out) and link[-len(objs):] == list(map(str, objs))
+    assert _build.KERNEL_SOURCES == ("field.cu", "curve.cu", "msm.cu", "tower.cu")
     assert all((_build.CSRC_DIR / s).exists() for s in _build.KERNEL_SOURCES + _build.HEADERS)
+    assert set(_build.SIGNATURES) >= {"svtpu_g1_add_select", "svtpu_horner_combine", "svtpu_fq12_mul"}
     assert len(_build.source_hash()) == 16
 
 
 def test_wrappers_route_cpu_tensors_to_plain_and_validate():
-    a = convert.limbs_to_tensor(F.FQ.encode([3, 5]))
-    launches = (FK.mont_mul.launches, CK.g1_add.launches, CK.g1_double.launches, MK.msm_scan.launches)
+    a = convert.limbs_to_tensor(F.FQ.encode([3, 5]), "cpu")
+    wrappers = (FK.mont_mul, CK.g1_add, CK.g1_double, MK.msm_scan, CK.g1_add_select, MK.horner_combine, TC.fq12_mul_flat)
+    launches = [w.launches for w in wrappers]
     assert torch.equal(FK.mont_mul(a, a, F.FQ), FK.mont_mul_plain(a, a, F.FQ))
-    g = C.g1_from_affine_ints([None, (1, 2)])
+    g = C.g1_from_affine_ints([None, (1, 2)], "cpu")
     assert all(torch.equal(x, y) for x, y in zip(CK.g1_add(g, g), CK.g1_add_plain(g, g)))
     assert all(torch.equal(x, y) for x, y in zip(CK.g1_double(g), CK.g1_double_plain(g)))
-    assert (FK.mont_mul.launches, CK.g1_add.launches, CK.g1_double.launches, MK.msm_scan.launches) == launches
+    m = torch.tensor([True, False])
+    assert all(torch.equal(x, y) for x, y in zip(CK.g1_add_select(m, g, g), CK.g1_add_select_plain(m, g, g)))
+    tot = C.G1(*(c.unsqueeze(0) for c in g))
+    assert all(torch.equal(x, y) for x, y in zip(MK.horner_combine(tot, 3), MK.horner_combine_plain(tot, 3)))
+    f = torch.cat([a[:1]] * 12).reshape(12, 1, 16)
+    assert torch.equal(TC.fq12_mul_flat(f, f), TC.fq12_mul_flat_plain(f, f))
+    assert [w.launches for w in wrappers] == launches
     with pytest.raises(ValueError):
         FK.mont_mul(a.int(), a, F.FQ)
     with pytest.raises(ValueError):
@@ -112,13 +187,13 @@ def test_wrappers_route_cpu_tensors_to_plain_and_validate():
 
 def test_convert_round_trips_jax_side_numpy():
     limbs = F.FR.encode([1, 2, 3]).reshape(3, 16)
-    g = C.g1_from_affine_ints([None, (1, 2)])
+    g = C.g1_from_affine_ints([None, (1, 2)], "cpu")
     params = convert.to_torch_params(
-        {"limbs": limbs, "point": tuple(convert.g1_to_numpy(g)), "named": C.G1(*convert.g1_to_numpy(g)), "k": 8}
+        {"limbs": limbs, "point": tuple(convert.g1_to_numpy(g)), "named": C.G1(*convert.g1_to_numpy(g)), "k": 8}, "cpu"
     )
     assert params["k"] == 8
     assert params["limbs"].dtype == torch.int64
     np.testing.assert_array_equal(convert.tensor_to_limbs(params["limbs"]), limbs)
     assert isinstance(params["named"], C.G1) and torch.equal(params["named"].y, g.y)
     assert all(torch.equal(x, y) for x, y in zip(params["point"], g))
-    assert F.FR.decode(convert.ints_to_tensor([7, 9])).tolist() == [F.FR.from_mont_int(7), F.FR.from_mont_int(9)]
+    assert F.FR.decode(convert.ints_to_tensor([7, 9], "cpu")).tolist() == [F.FR.from_mont_int(7), F.FR.from_mont_int(9)]
