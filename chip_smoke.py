@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch + CUDA port on one GPU (no JAX).
 
-Drives the port's main path, BASELINE config 1 (a batched succinct
-PLONK+KZG GWC verify of the k=8 standard-plonk proof with the Keccak
-transcript, 1820 proofs, then the batch decide of those proofs), through
-``snark_verifier_tpu_torch.entry`` and ``parallel.batch``:
+Drives the port's main paths through ``snark_verifier_tpu_torch.entry`` and
+``parallel.batch``: BASELINE config 1 (a batched succinct PLONK+KZG GWC
+verify of the k=8 standard-plonk proof with the Keccak transcript, 1820
+proofs, then the batch decide of those proofs), the same circuit's proofs on
+the Poseidon transcript, the k=20 outer aggregation snark (verify and decide
+of both its accumulators) and config 4's aggregation fold:
 
 1. probe: torch, CUDA, and the card's name and power limit;
-2. build: compile the seven kernels (csrc/*.cu) for sm_90a, one nvcc per
+2. build: compile the nine kernels (csrc/*.cu) for sm_90a, one nvcc per
    source in parallel, and print ptxas's registers and spills;
 3. kernels: each kernel against its plain PyTorch version on the card, bit
    for bit, at the main path's shapes, with both times (CUDA events, median
    of 5 runs after a warm-up) and the least time the card could take
-   (bound); K4 at 32 to 256 threads per block;
+   (bound); K4 at 32 to 256 threads per block; K8 and K9 (the two-kernel
+   small MSM) at K4's shape, and the 64-window MSM they make against K4 and
+   the oracle;
 4. slice: 1820 proofs (4 unique ones tiled, 2 rows with a corrupted
    commitment, 1 row with a wrong instance) from the data-file fixture;
    accumulators equal the native verifier's, ``ok`` False exactly on the
@@ -27,7 +31,21 @@ transcript, 1820 proofs, then the batch decide of those proofs), through
    time, verified proofs/s (verify + decide), peak memory;
    ``build_verifier(decide_dk=...)`` on 8 proofs equal to the host oracle;
 7. large MSM: ``msm_serial`` at 2^16 (window 8) and 2^20 (window 11,
-   signed) points, exact against the oracle; points/s and peak memory.
+   signed) points, exact against the oracle; points/s and peak memory;
+8. Poseidon slice: 1820 Poseidon-transcript proofs (4 unique ones tiled, a
+   compressed point with x >= p in one row, a non-residue x in another, a
+   wrong instance in a third); accumulators equal the native verifier's,
+   ``ok`` False exactly on the two corrupted rows, K1-K4 launched; warm
+   time, proofs/s, peak memory, K1 launches, and a profile with the share
+   of the Poseidon permutations and point reads in device time and host ops;
+9. aggregation: ``entry.aggregation_entry`` (the k=20 outer snark at B=8,
+   both accumulators decided per proof) with ``MEGA`` on (K4) and off
+   (K8/K9): both accumulators equal the native verifier's, ``ok`` all True,
+   a mutated proof byte and a flipped instance limb clear it, the two runs
+   agree; warm times, and a profile of the ``MEGA``-off run;
+10. config 4: the port's ``aggregate_native`` folds the four Poseidon
+   snarks on the host, the card decides the fold (True) and decodes its 16
+   instance limbs back to it.
 
 Every failure raises, so the exit code is non-zero.  The last stdout line
 is ``{"ok": true, "device": {...}}``; before it, a JSON line with the
@@ -65,9 +83,15 @@ KERNELS = {  # name -> (source, TPU kernel replaced)
     "g1_add_select": ("snark_verifier_tpu_torch/csrc/curve.cu", "snark_verifier_tpu/ops/curve_pallas.py:113"),
     "horner_combine": ("snark_verifier_tpu_torch/csrc/msm.cu", "snark_verifier_tpu/ops/curve_pallas.py:348"),
     "fq12_mul": ("snark_verifier_tpu_torch/csrc/tower.cu", "snark_verifier_tpu/ops/tower_pallas.py:97"),
+    "msm_window": ("snark_verifier_tpu_torch/csrc/msm.cu", "snark_verifier_tpu/ops/msm_pallas.py:90"),
+    "msm_horner": ("snark_verifier_tpu_torch/csrc/msm.cu", "snark_verifier_tpu/ops/msm_pallas.py:232"),
 }
 SLICE_KERNELS = ("mont_mul", "g1_add", "g1_double", "msm_scan")
 DECIDE_KERNELS = ("mont_mul", "g1_add", "g1_add_select", "horner_combine", "fq12_mul")
+AGG_MEGA_KERNELS = ("mont_mul", "g1_add", "g1_double", "msm_scan", "fq12_mul")  # outer snark, MEGA on
+AGG_WINDOWED_KERNELS = ("mont_mul", "g1_add", "g1_double", "msm_window", "msm_horner", "fq12_mul")  # MEGA off
+AGG_BATCH = 8  # the outer snark tiled, as tools/verify_aggregation_onchip.py
+FLIPPED_LIMB = 3  # instance limb flipped in the aggregation phase (old accumulator's lhs x, top limb)
 
 # The card's peak rates for the bound (NVIDIA H100 SXM data sheet and
 # Hopper white paper): HBM3 bandwidth, and 32-bit integer multiply-adds:
@@ -91,9 +115,11 @@ def require(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def cuda_ms(torch, fn, reps: int = 5) -> float:
-    """Median milliseconds of ``fn`` on the current stream (one warm-up)."""
-    fn()
+def cuda_ms(torch, fn, reps: int = 5, warmup: bool = True) -> float:
+    """Median milliseconds of ``fn`` on the current stream (after one
+    warm-up call unless the caller has just made one)."""
+    if warmup:
+        fn()
     times = []
     for _ in range(reps):
         start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -200,7 +226,7 @@ def phase_kernels(torch, dev, rng):
         want_aff = bn254.g1_msm(scal[row * N_TERMS:(row + 1) * N_TERMS], ps[row * N_TERMS:(row + 1) * N_TERMS])
         require(C.g1_to_affine_ints(C.G1(*(c[row:row + 1] for c in got))) == [want_aff], "msm_scan: kernel != oracle")
     ms = cuda_ms(torch, lambda: MK.msm_scan(table, digits))
-    plain_ms = cuda_ms(torch, lambda: MK.msm_scan_plain(table, digits))
+    plain_ms = cuda_ms(torch, lambda: MK.msm_scan_plain(table, digits), reps=1, warmup=False)  # ~17 s a call
     nwin = digits.shape[-1]
     point_ops = (nwin * N_TERMS - 1) * MONT_PER["add"] + WINDOW_DBLS * (nwin - 1) * MONT_PER["double"]
     results["msm_scan"] = {"max_abs_err": max_abs_err(torch, got, want), "ms": ms, "plain_ms": plain_ms,
@@ -214,6 +240,65 @@ def phase_kernels(torch, dev, rng):
         require(all(torch.equal(g, w) for g, w in zip(out, want)), f"msm_scan block {block}: kernel != plain")
         sweep[block] = round(cuda_ms(torch, lambda: MK.msm_scan(table, digits, block=block)), 4)
     log(f"kernel msm_scan threads-per-block sweep, ms: {sweep}")
+    return results, (table, digits, got, scal, ps)
+
+
+def phase_kernels_windowed(torch, dev, msm_case):
+    """K8 and K9 against their plain versions on the card at K4's shape (B =
+    1820 proofs, n = 18, tables from the K2/K3 ladder, seeded digits), and
+    the 64-window MSM they make against K4 and the oracle."""
+    from snark_verifier_tpu_torch.ops import curve as C
+    from snark_verifier_tpu_torch.ops import msm_cuda as MK
+    from snark_verifier_tpu_torch.util import bn254
+
+    table, digits, k4_out, scal, ps = msm_case
+    results = {}
+    w = 31  # a middle window: digits spread over [-8, 8]
+    dig_w, dig_next = digits[..., w].contiguous(), digits[..., w + 1].contiguous()
+    got, want = MK.msm_window(table, dig_w), MK.msm_window_plain(table, dig_w)
+    torch.cuda.synchronize()
+    require(all(torch.equal(g, x) for g, x in zip(got, want)), "msm_window: kernel != plain")
+    dl = dig_w.tolist()
+    for row in range(3):
+        want_aff = bn254.g1_msm([d % bn254.R for d in dl[row]], ps[row * N_TERMS:(row + 1) * N_TERMS])
+        require(C.g1_to_affine_ints(C.G1(*(c[row:row + 1] for c in got))) == [want_aff], "msm_window: kernel != oracle")
+    ms, plain_ms = cuda_ms(torch, lambda: MK.msm_window(table, dig_w)), cuda_ms(torch, lambda: MK.msm_window_plain(table, dig_w))
+    # the entries the digits select (3 coordinates each), the digits (half a byte), the outputs
+    results["msm_window"] = {"max_abs_err": max_abs_err(torch, got, want), "ms": ms, "plain_ms": plain_ms,
+                             **bound((3 * B * N_TERMS + 3 * B) * FE_BYTES + B * N_TERMS // 2,
+                                     (N_TERMS - 1) * MONT_PER["add"] * B)}
+    log(f"kernel msm_window (B={B}, n={N_TERMS}, window {w}): equal to plain and oracle; kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {results['msm_window']['bound_ms']:.6f} ms ({results['msm_window']['bound_by']})")
+
+    acc = MK.msm_window(table, dig_next)  # a projective accumulator (z != 1)
+    got, want = MK.msm_horner(acc, want), MK.msm_horner_plain(acc, want)
+    torch.cuda.synchronize()
+    require(all(torch.equal(g, x) for g, x in zip(got, want)), "msm_horner: kernel != plain")
+    contrib = MK.msm_window(table, dig_w)
+    a, c = C.g1_to_affine_ints(C.G1(*(t[:3] for t in acc))), C.g1_to_affine_ints(C.G1(*(t[:3] for t in contrib)))
+    require(C.g1_to_affine_ints(C.G1(*(t[:3] for t in got))) == [bn254.g1_add(bn254.g1_mul(x, 16), y) for x, y in zip(a, c)],
+            "msm_horner: kernel != oracle")
+    ms = cuda_ms(torch, lambda: MK.msm_horner(acc, contrib))
+    plain_ms = cuda_ms(torch, lambda: MK.msm_horner_plain(acc, contrib))
+    results["msm_horner"] = {"max_abs_err": max_abs_err(torch, got, want), "ms": ms, "plain_ms": plain_ms,
+                             **bound(9 * B * FE_BYTES, (WINDOW_DBLS * MONT_PER["double"] + MONT_PER["add"]) * B)}
+    log(f"kernel msm_horner (B={B}): equal to plain and oracle; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {results['msm_horner']['bound_ms']:.6f} ms ({results['msm_horner']['bound_by']})")
+
+    # the whole two-kernel MSM (64 windows: 64 launches of each) against K4 and the oracle
+    two = MK.msm_windowed(table, digits)
+    torch.cuda.synchronize()
+    require(C.g1_to_affine_ints(C.G1(*(t[:8] for t in two))) == C.g1_to_affine_ints(C.G1(*(t[:8] for t in k4_out))),
+            "two-kernel MSM != K4")
+    for row in range(3):
+        want_aff = bn254.g1_msm(scal[row * N_TERMS:(row + 1) * N_TERMS], ps[row * N_TERMS:(row + 1) * N_TERMS])
+        require(C.g1_to_affine_ints(C.G1(*(t[row:row + 1] for t in two))) == [want_aff], "two-kernel MSM != oracle")
+    two_ms = cuda_ms(torch, lambda: MK.msm_windowed(table, digits))
+    k4_ms = cuda_ms(torch, lambda: MK.msm_scan(table, digits))
+    log(f"two-kernel MSM (B={B}, n={N_TERMS}, 64 windows, 128 launches): equal to K4 and the oracle in affine form; "
+        f"{two_ms:.4f} ms against K4's {k4_ms:.4f} ms in this call ({two_ms / k4_ms:.2f}x)")
+    results["msm_window"]["two_kernel_msm_ms"] = two_ms
+    results["msm_window"]["k4_msm_ms"] = k4_ms
     return results
 
 
@@ -266,7 +351,7 @@ def phase_kernels_decide(torch, dev, rng):
         want_aff = bn254.g1_msm([2 << (window * w) for w in range(nwin)], pts)
         require(C.g1_to_affine_ints(got) == [want_aff], f"horner_combine nwin={nwin}: kernel != oracle")
         ms = cuda_ms(torch, lambda: MK.horner_combine(tot, window))
-        plain_ms = cuda_ms(torch, lambda: MK.horner_combine_plain(tot, window))
+        plain_ms = cuda_ms(torch, lambda: MK.horner_combine_plain(tot, window), reps=1, warmup=False)  # ~4 s
         log(f"kernel horner_combine (nwin={nwin}, window={window}): equal to plain and oracle; "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
         if window == 8:  # the decide's shape
@@ -313,12 +398,13 @@ def wrappers():
     from snark_verifier_tpu_torch.ops import tower_cuda as TC
 
     return {"mont_mul": FK.mont_mul, "g1_add": CK.g1_add, "g1_double": CK.g1_double, "msm_scan": MK.msm_scan,
-            "g1_add_select": CK.g1_add_select, "horner_combine": MK.horner_combine, "fq12_mul": TC.fq12_mul_flat}
+            "g1_add_select": CK.g1_add_select, "horner_combine": MK.horner_combine, "fq12_mul": TC.fq12_mul_flat,
+            "msm_window": MK.msm_window, "msm_horner": MK.msm_horner}
 
 
-def count_launches(torch, run, required):
+def count_launches(torch, run, required, absent=()):
     """Zero every kernel's count, run the path, read the counts; fail if a
-    kernel in ``required`` was not launched."""
+    kernel in ``required`` was not launched or one in ``absent`` was."""
     kernels = wrappers()
     for k in kernels.values():
         k.launches = 0
@@ -327,6 +413,8 @@ def count_launches(torch, run, required):
     launches = {name: k.launches for name, k in kernels.items()}
     for name in required:
         require(launches[name] > 0, f"{name} was not launched by the main path")
+    for name in absent:
+        require(launches[name] == 0, f"{name} was launched where it must not be")
     return result, launches
 
 
@@ -340,6 +428,170 @@ def check_against_native(out, fx, rows, proofs, instances):
         require(acc == native_accumulator(fx, proofs[row], instances[row]), f"row {row}: accumulator != native")
         accs[row] = acc
     return accs
+
+
+def warm_times(torch, fn, args, reps: int = 5):
+    """Host-clock seconds of ``reps`` synchronised calls (the caller has made
+    the first call): their median and the list."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times), times
+
+
+def phase_poseidon(torch, dev, card):
+    """1820 Poseidon-transcript proofs of the k=8 circuit: accumulators equal
+    the native verifier's, ``ok`` False exactly on the corrupted rows;
+    timed, and profiled with the Poseidon permutations and point reads as
+    named ranges."""
+    from snark_verifier_tpu_torch import entry as E
+    from snark_verifier_tpu_torch.ops import poseidon as P
+    from snark_verifier_tpu_torch.parallel.batch import pack_instances, pack_proofs
+    from snark_verifier_tpu_torch.system.halo2 import transcript_torch as TT
+
+    fx = E.poseidon_fixture()
+    fn, _ = E.entry(dev, batch=B, transcript="poseidon")
+    proofs = [fx.proofs[i % len(fx.proofs)] for i in range(B)]
+    instances = [fx.instances[i % len(fx.proofs)] for i in range(B)]
+    bad_rows, wrong_row = [B - 3, B - 2], B - 1
+    proofs[bad_rows[0]] = E.corrupt_compressed(proofs[bad_rows[0]], 0, out_of_range=True)
+    proofs[bad_rows[1]] = E.corrupt_compressed(proofs[bad_rows[1]], 32, out_of_range=False)
+    instances[wrong_row] = [[instances[wrong_row][0][0] + 1]]
+    args = (pack_proofs(proofs, dev), pack_instances(instances, dev))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out, launches = count_launches(torch, lambda: fn(*args), SLICE_KERNELS)
+    first_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"poseidon first run: {first_s:.3f} s; launches {launches}")
+    ok = out["ok"].cpu().tolist()
+    require(ok == [row not in bad_rows for row in range(B)],
+            "poseidon: ok must be False exactly on the corrupted rows (x >= p, non-residue x)")
+    good = [r for r in range(B) if r not in bad_rows and r != wrong_row]
+    base = torch.as_tensor([r % len(fx.proofs) for r in good], device=dev)
+    idx = torch.as_tensor(good, device=dev)
+    for key in ("lhs_x", "lhs_y", "rhs_x", "rhs_y"):
+        require(torch.equal(out[key][idx], out[key][base]), f"poseidon {key}: tiled rows disagree")
+    accs = check_against_native(out, fx, list(range(len(fx.proofs))) + [wrong_row], proofs, instances)
+    require(E.host_decide(fx, *accs[0]) is True and E.host_decide(fx, *accs[wrong_row]) is False,
+            "poseidon: host oracle must decide the good row True and the wrong instance False")
+    log(f"poseidon accumulators equal native for the {len(fx.proofs)} unique proofs and the wrong-instance row; "
+        f"ok False exactly on rows {bad_rows} (x >= p, non-residue x); host oracle True / False")
+    warm, times = warm_times(torch, fn, args, reps=3)
+    log(f"poseidon warm verify (k=8, B={B}, GWC, Poseidon transcript): median {warm:.4f} s of "
+        f"{[round(t, 4) for t in times]}, {B / warm:.1f} proofs/s, peak memory {peak / 2**20:.1f} MiB, "
+        f"K1 launches {launches['mont_mul']}, on {card}")
+
+    from torch.profiler import record_function
+
+    def ranged(name, f):
+        def wrapper(*a, **k):
+            with record_function(name):
+                return f(*a, **k)
+        return wrapper
+
+    perm, read = P.permutation, TT.TorchPoseidonTranscript.read_ec_point
+    P.permutation = ranged("poseidon_permutation", perm)
+    TT.TorchPoseidonTranscript.read_ec_point = ranged("poseidon_point_read", read)
+    try:
+        _, least = profile_run(torch, "poseidon", "msm_scan", fn, args, warm,
+                               ranges=("poseidon_permutation", "poseidon_point_read"))
+    finally:
+        P.permutation, TT.TorchPoseidonTranscript.read_ec_point = perm, read
+    return least
+
+
+def phase_aggregation(torch, dev, card):
+    """The k=20 outer snark at B=8 through ``entry.aggregation_entry`` (both
+    accumulators decided per proof), with MEGA on (K4) and off (K8/K9)."""
+    from snark_verifier_tpu_torch import entry as E
+    from snark_verifier_tpu_torch.ops import msm_cuda as MK
+    from snark_verifier_tpu_torch.parallel.batch import decode_accumulator
+
+    fx = E.aggregation_fixture()
+    t0 = time.perf_counter()
+    want = E.native_accumulators(fx, fx.proofs[0], fx.instances[0])
+    log(f"aggregation: k={fx.k} outer snark, {len(fx.proofs[0])}-byte Poseidon proof, "
+        f"{len(fx.instances[0][0])} instances; native verify {time.perf_counter() - t0:.2f} s on the host")
+    fn, args = E.aggregation_entry(AGG_BATCH)  # as a user calls it: device "cuda"
+    bad = tuple(a.clone() for a in args)
+    bad[0][1, 7] ^= 1  # one byte of the proof (row 1)
+    bad[1][2, FLIPPED_LIMB, 0] ^= 1  # one bit of one instance limb (row 2)
+    runs = {}
+    for mega, required, absent in ((True, AGG_MEGA_KERNELS, ("msm_window", "msm_horner")),
+                                   (False, AGG_WINDOWED_KERNELS, ("msm_scan",))):
+        MK.MEGA = mega
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, launches = count_launches(torch, lambda: fn(*args), required, absent)
+            first_s = time.perf_counter() - t0
+            require(tuple(out["lhs_x"].shape) == (2, AGG_BATCH, 16), "aggregation: outputs must be (2, B, 16)")
+            for row in range(AGG_BATCH):
+                got = [decode_accumulator({k: v[a] for k, v in out.items() if k != "ok"}, row) for a in range(2)]
+                require(got == want, f"aggregation (MEGA {mega}) row {row}: accumulators != native")
+            require(out["ok"].all().item(), f"aggregation (MEGA {mega}): every proof must decide True")
+            bad_ok = fn(*bad)["ok"].cpu().tolist()
+            require(bad_ok == [r not in (1, 2) for r in range(AGG_BATCH)],
+                    f"aggregation (MEGA {mega}): the mutated byte and the flipped limb must clear ok, got {bad_ok}")
+            warm, times = warm_times(torch, fn, args, reps=2)
+            log(f"aggregation MEGA {'on (K4)' if mega else 'off (K8/K9)'}: both accumulators equal native, decide "
+                f"True on all {AGG_BATCH} rows, mutated byte and flipped limb rejected; first {first_s:.3f} s, warm "
+                f"median {warm:.4f} s of {[round(t, 4) for t in times]}; launches {launches}, on {card}")
+            per_launch, least = {}, None
+            if not mega:
+                per_launch, least = profile_run(torch, "aggregation MEGA off", "msm_window", fn, args, warm)
+            runs[mega] = (out, launches, per_launch, least)
+        finally:
+            MK.MEGA = True
+    on, off = runs[True][0], runs[False][0]
+    require(all(torch.equal(on[k], off[k]) for k in on), "aggregation: MEGA on and off must agree")
+    log("aggregation: MEGA on and off give the same affine accumulators and ok")
+    return runs[False][1], runs[False][2], runs[False][3]
+
+
+def phase_config4(torch, dev, card):
+    """BASELINE config 4: the port's aggregate_native folds the four
+    Poseidon snarks on the host; the card decides the fold and decodes the
+    fold's 16 instance limbs back to its two points."""
+    from snark_verifier_tpu_torch import entry as E
+    from snark_verifier_tpu_torch.loader.torch_loader import TorchLoader
+    from snark_verifier_tpu_torch.ops import curve as C
+    from snark_verifier_tpu_torch.ops import pairing as PAIR
+    from snark_verifier_tpu_torch.pcs.kzg.accumulator import accumulator_to_limbs
+    from snark_verifier_tpu_torch.sdk import Snark
+    from snark_verifier_tpu_torch.sdk.aggregation import aggregate_native
+
+    fx = E.poseidon_fixture()
+    t0 = time.perf_counter()
+    agg = aggregate_native(fx.As, fx.svk, [Snark(fx.protocol, ins, p) for ins, p in zip(fx.instances, fx.proofs)])
+    fold_s = time.perf_counter() - t0
+    lhs, rhs = agg.accumulator.lhs.value, agg.accumulator.rhs.value
+    require(agg.instances == accumulator_to_limbs(agg.accumulator) and len(agg.instances) == 16,
+            "config 4: the fold's instances must be its accumulator's limbs")
+    loader = TorchLoader((1,), dev)
+    limbs = [loader.load_const(v) for v in agg.instances]
+    decoded = [loader.ec_point_from_limbs(limbs[i:i + 8], 4, 68).value for i in (0, 8)]
+    got = [C.g1_to_affine_ints(C.G1(*torch.broadcast_tensors(*p.as_proj())))[0] for p in decoded]
+    require(got == [lhs, rhs] and loader.ok.tolist() == [True], "config 4: the limbs must decode to the fold on the card")
+    gl, gr = C.g1_from_affine_ints([lhs], dev), C.g1_from_affine_ints([rhs], dev)
+
+    def decide():
+        return PAIR.kzg_pairing_check(gl, gr, fx.dk.g2, fx.dk.s_g2)
+
+    ok, launches = count_launches(torch, decide, ("mont_mul", "fq12_mul"))
+    require(ok.tolist() == [True], "config 4: the folded accumulator must decide True on the card")
+    require(E.host_decide(fx, lhs, rhs) is True, "config 4: host oracle must decide the fold True")
+    warm, times = warm_times(torch, decide, ())
+    log(f"config 4: aggregate_native of 4 Poseidon snarks {fold_s:.3f} s on the host; 16 instance limbs decode to "
+        f"the fold on the card; device decide True, warm median {warm:.4f} s of {[round(t, 4) for t in times]}; "
+        f"launches {launches}, on {card}")
 
 
 def phase_slice(torch, dev, card):
@@ -400,11 +652,31 @@ def phase_slice(torch, dev, card):
     return launches, per_launch, least, out, wrong_row, warm
 
 
-def profile_run(torch, label, anchor, fn, args, warm_s: float) -> dict:
+def _descendants(event):
+    for child in event.cpu_children:
+        yield child
+        yield from _descendants(child)
+
+
+def log_ranges(torch, label, events, ranges, busy_ms, host_ops) -> None:
+    """Device time and host aten ops under each named record_function range,
+    as shares of the profiled run's device busy time and host aten ops."""
+    for name in ranges:
+        hits = [e for e in events if e.name == name and e.device_type == torch.autograd.DeviceType.CPU]
+        dev_ms = sum(e.device_time_total for e in hits) / 1e3
+        ops = sum(1 for e in hits for d in _descendants(e) if d.name.startswith("aten::"))
+        host_ms = sum(e.cpu_time_total for e in hits) / 1e3
+        log(f"{label} profile: {name}: {len(hits)} calls, device {dev_ms:.3f} ms = "
+            f"{100 * dev_ms / busy_ms:.1f} % of the device busy time, {ops} host aten ops = "
+            f"{100 * ops / max(host_ops, 1):.1f} % of them, {host_ms:.1f} ms of host time under the profiler")
+
+
+def profile_run(torch, label, anchor, fn, args, warm_s: float, ranges=()) -> dict:
     """One warm run of ``fn`` under torch.profiler: device time by kernel,
     launch and host-op counts, and the device's busy share of the
     unprofiled warm wall time (one stream, so kernel times do not overlap).
-    ``anchor`` is a kernel the run must show for the profile to count.
+    ``anchor`` is a kernel the run must show for the profile to count;
+    ``ranges`` names record_function ranges whose shares are logged.
     Returns each hand-written kernel's mean device ms per launch in the run
     and the least device ms of any one launch of them (empty and None when
     the profiler recorded no ``anchor``)."""
@@ -414,7 +686,9 @@ def profile_run(torch, label, anchor, fn, args, warm_s: float) -> dict:
         fn(*args)
         torch.cuda.synchronize()
     events = prof.events()
-    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    # a record_function range also appears on the device timeline, spanning
+    # its kernels and the idle gaps between them: not a kernel, so left out
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in ranges]
     host_ops = sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith("aten::"))
     by = {}
     for e in device:
@@ -429,6 +703,7 @@ def profile_run(torch, label, anchor, fn, args, warm_s: float) -> dict:
     parts = ", ".join(f"{k} {c} launches {us / 1e3:.3f} ms" for k, (c, us) in ranked)
     log(f"{label} profile (one warm run): device busy {busy_ms:.3f} ms over {len(device)} device ops "
         f"= {100 * busy_ms / 1e3 / warm_s:.1f} % of the {warm_s:.4f} s warm wall; {host_ops} host aten ops; {parts}")
+    log_ranges(torch, label, events, ranges, busy_ms, host_ops)
     least = min(e.device_time_total for e in device if any(f"{k}_kernel" in e.name for k in KERNELS)) / 1e3
     return {k: us / c / 1e3 for k, (c, us) in by.items() if k in KERNELS}, least
 
@@ -583,25 +858,45 @@ def main() -> int:
     log_ptxas(path.with_suffix(".log"))
 
     rng = random.Random(SEED)
-    results = phase_kernels(torch, dev, rng)
+    t_start = time.perf_counter()
+
+    def done(phase):
+        log(f"[{time.perf_counter() - t_start:.1f} s] {phase} done")
+
+    results, msm_case = phase_kernels(torch, dev, rng)
+    results.update(phase_kernels_windowed(torch, dev, msm_case))
+    del msm_case
     results.update(phase_kernels_decide(torch, dev, rng))
+    done("kernels")
     slice_launches, slice_per_launch, slice_least, out, wrong_row, verify_s = phase_slice(torch, dev, smi)
     phase_shplonk(torch, dev)
+    done("slice, shplonk")
     decide_launches, decide_per_launch, decide_least = phase_decide(torch, dev, smi, out, wrong_row, verify_s)
     del out
+    done("decide")
     phase_msm(torch, dev, smi, rng)
+    done("large MSM")
+    poseidon_least = phase_poseidon(torch, dev, smi)
+    done("poseidon")
+    agg_launches, agg_per_launch, agg_least = phase_aggregation(torch, dev, smi)
+    done("aggregation")
+    phase_config4(torch, dev, smi)
+    done("config 4")
     require("jax" not in sys.modules, "the port must not import jax")
     require(not any(m == "snark_verifier_tpu" or m.startswith("snark_verifier_tpu.") for m in sys.modules),
             "the port must not import the JAX package")
 
     # each kernel's launches, and its mean device ms per launch (torch.profiler),
-    # on the path that counts it: the slice for K1-K4, the decide for K5-K7
-    launches = {**{k: decide_launches[k] for k in DECIDE_KERNELS}, **{k: slice_launches[k] for k in SLICE_KERNELS}}
+    # on the path that counts it: the slice for K1-K4, the decide for K5-K7,
+    # the outer snark with MEGA off for K8-K9
+    windowed = ("msm_window", "msm_horner")
+    launches = {**{k: decide_launches[k] for k in DECIDE_KERNELS}, **{k: slice_launches[k] for k in SLICE_KERNELS},
+                **{k: agg_launches[k] for k in windowed}}
     path_ms = {**{k: decide_per_launch.get(k) for k in DECIDE_KERNELS},
-               **{k: slice_per_launch.get(k) for k in SLICE_KERNELS}}
+               **{k: slice_per_launch.get(k) for k in SLICE_KERNELS}, **{k: agg_per_launch.get(k) for k in windowed}}
     # the per-launch floor: the least device time any one kernel launch took
     # in the path profiles; no launch, however little its work, takes less
-    floors = [t for t in (slice_least, decide_least) if t is not None]
+    floors = [t for t in (slice_least, decide_least, poseidon_least, agg_least) if t is not None]
     floor = min(floors) if floors else None
     log(f"per-launch floor (least device time of one kernel launch in the path profiles): {floor} ms")
     report = [

@@ -42,6 +42,8 @@ SIGNATURES = {
     "svtpu_g1_add_select": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P, _INT, _P],
     "svtpu_horner_combine": [_P, _P, _P, _P, _P, _P, _I64, _INT, _INT, _P, _INT, _P],
     "svtpu_fq12_mul": [_P, _P, _P, _I64, _P, _INT, _P],
+    "svtpu_msm_window": [_P, _P, _P, _P, _P, _I64, _INT, _P, _INT, _P],
+    "svtpu_msm_horner": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P, _INT, _P],
 }
 
 

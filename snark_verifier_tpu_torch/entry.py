@@ -1,15 +1,24 @@
-"""Entry points of the port's main path: BASELINE config 1.
+"""Entry points of the port's main paths.
 
-A batched succinct PLONK+KZG verify of the standard-plonk circuit at k = 8
-with the Keccak (EVM) transcript, at 1820 proofs: 4 unique proofs tiled, as
-``bench.py``'s config 1 and ``__graft_entry__.entry`` build it.  GWC by
-default; SHPLONK runs through the same code.  Then the batch decide: the
-1820 accumulators folded by two MSMs and one pairing check on the device.
+BASELINE config 1: a batched succinct PLONK+KZG verify of the
+standard-plonk circuit at k = 8 with the Keccak (EVM) transcript, at 1820
+proofs: 4 unique proofs tiled, as ``bench.py``'s config 1 and
+``__graft_entry__.entry`` build it.  GWC by default; SHPLONK runs through the
+same code; ``transcript="poseidon"`` verifies the same circuit's Poseidon
+proofs (instances 20000..20003, the snarks ``bench.py``'s config 4
+aggregates).  Then the batch decide: the 1820 accumulators folded by two
+MSMs and one pairing check on the device.
 
-The circuit, its deciding key and the proofs come from a data file,
-``data/standard_plonk_k8.json`` (written by ``tests/test_torch_fixture.py``,
-which proves that it is what the JAX package's prover generates), so no
-prover runs here.
+The aggregation path: the k = 20 outer snark of the recursion example (one
+inner snark aggregated; two accumulators: the fresh one and the one decoded
+from its 16 instance limbs), verified with the Poseidon transcript and both
+accumulators decided per proof (``aggregation_entry``), as
+``tools/verify_aggregation_onchip.py`` does with the JAX package.
+
+The circuits, deciding keys and proofs come from data files,
+``data/standard_plonk_k8.json`` and ``data/aggregation_outer_1snark.json``
+(written by ``tests/test_torch_fixture.py``, which proves that they are what
+the JAX package's prover and the golden file give), so no prover runs here.
 
 Also the host-side references the checks use: the native (python-int)
 succinct verifier and the host pairing oracle.
@@ -32,15 +41,18 @@ from snark_verifier_tpu_torch.parallel.batch import (
     pack_proofs,
 )
 from snark_verifier_tpu_torch.pcs.kzg import KzgDecidingKey, KzgGwc, KzgShplonk
-from snark_verifier_tpu_torch.system.halo2.transcript import NativeEvmTranscript
+from snark_verifier_tpu_torch.system.halo2.transcript import NativeEvmTranscript, NativePoseidonTranscript
 from snark_verifier_tpu_torch.util import bn254
 from snark_verifier_tpu_torch.verifier.plonk import PlonkSuccinctVerifier
 from snark_verifier_tpu_torch.verifier.plonk.serialization import protocol_from_json
 
 K = 8
 BATCH = 1820
+AGGREGATION_BATCH = 8  # the outer proof tiled, as tools/verify_aggregation_onchip.py
 SCHEMES = {"gwc": KzgGwc, "shplonk": KzgShplonk}
+NATIVE_TRANSCRIPTS = {"evm": NativeEvmTranscript, "poseidon": NativePoseidonTranscript}
 DATA_FILE = Path(__file__).resolve().parent / "data" / "standard_plonk_k8.json"
+AGGREGATION_FILE = DATA_FILE.with_name("aggregation_outer_1snark.json")
 
 
 @dataclass(frozen=True)
@@ -49,8 +61,9 @@ class Fixture:
     scheme: str
     protocol: object
     dk: KzgDecidingKey  # svk = dk.svk (the SRS's g[0]), g2, s_g2
-    instances: tuple  # per proof: [[instance]]
+    instances: tuple  # per proof: [[instance, ...], ...] (one list per column)
     proofs: tuple  # per proof: bytes
+    transcript: str = "evm"  # the proofs' transcript: "evm" (Keccak) or "poseidon"
 
     @property
     def As(self):
@@ -65,6 +78,10 @@ def _point(obj):
     return tuple(_point(v) for v in obj) if isinstance(obj, list) else int(obj, 16)
 
 
+def _dk(obj) -> KzgDecidingKey:
+    return KzgDecidingKey(svk=_point(obj["svk"]), g2=_point(obj["g2"]), s_g2=_point(obj["s_g2"]))
+
+
 @functools.lru_cache(maxsize=None)
 def fixture(k: int = K, scheme: str = "gwc") -> Fixture:
     """The circuit at size 2^k, its deciding key and its unique proofs, with
@@ -72,21 +89,63 @@ def fixture(k: int = K, scheme: str = "gwc") -> Fixture:
     data = json.loads(DATA_FILE.read_text())
     if data["k"] != k:
         raise ValueError(f"the data file holds the k={data['k']} circuit, not k={k}")
-    dk = KzgDecidingKey(svk=_point(data["svk"]), g2=_point(data["g2"]), s_g2=_point(data["s_g2"]))
     instances = tuple([[v for v in col] for col in ins] for ins in data["instances"])
     proofs = tuple(bytes.fromhex(p) for p in data["proofs"][scheme])
-    return Fixture(k, scheme, protocol_from_json(data["protocol"]), dk, instances, proofs)
+    return Fixture(k, scheme, protocol_from_json(data["protocol"]), _dk(data), instances, proofs)
 
 
-def entry(device="cuda", batch: int = BATCH, k: int = K, scheme: str = "gwc"):
-    """Returns ``(fn, (proof_bytes, instances))``: the batched verifier and a
-    batch of ``batch`` proofs (the unique ones tiled) on ``device``."""
-    fx = fixture(k, scheme)
-    fn = build_verifier(fx.protocol, fx.As, fx.svk, device=device)
+@functools.lru_cache(maxsize=None)
+def poseidon_fixture() -> Fixture:
+    """The k = 8 circuit's four GWC proofs on the Poseidon transcript, with
+    instances 20000..20003, read from the data file."""
+    data = json.loads(DATA_FILE.read_text())
+    pos = data["poseidon"]
+    instances = tuple([[v for v in col] for col in ins] for ins in pos["instances"])
+    proofs = tuple(bytes.fromhex(p) for p in pos["proofs"])
+    return Fixture(data["k"], pos["scheme"], protocol_from_json(data["protocol"]), _dk(data), instances, proofs,
+                   "poseidon")
+
+
+@functools.lru_cache(maxsize=None)
+def aggregation_fixture() -> Fixture:
+    """The k = 20 outer aggregation snark: its protocol (16 accumulator limbs
+    among its instances), deciding key, instances and Poseidon proof, read
+    from the data file."""
+    data = json.loads(AGGREGATION_FILE.read_text())
+    protocol = protocol_from_json(data["protocol"])
+    instances = ([[int(v, 16) for v in data["instances"]]],)
+    proofs = (bytes.fromhex(data["proof"]),)
+    return Fixture(protocol.domain.k, "gwc", protocol, _dk(data["dk"]), instances, proofs, "poseidon")
+
+
+def tiled(fx: Fixture, batch: int, device="cuda"):
+    """(proof_bytes, instances) tensors of ``batch`` proofs on ``device``:
+    the fixture's unique proofs tiled."""
     rows = [i % len(fx.proofs) for i in range(batch)]
-    proofs = pack_proofs([fx.proofs[i] for i in rows], device)
-    instances = pack_instances([fx.instances[i] for i in rows], device)
-    return fn, (proofs, instances)
+    return pack_proofs([fx.proofs[i] for i in rows], device), pack_instances([fx.instances[i] for i in rows], device)
+
+
+def entry(device="cuda", batch: int = BATCH, k: int = K, scheme: str = "gwc", transcript: str = "evm"):
+    """Returns ``(fn, (proof_bytes, instances))``: the batched verifier and a
+    batch of ``batch`` proofs (the unique ones tiled) on ``device``; with
+    ``transcript="poseidon"``, the k = 8 GWC proofs on the Poseidon
+    transcript."""
+    fx = fixture(k, scheme) if transcript == "evm" else poseidon_fixture()
+    if (fx.k, fx.scheme) != (k, scheme):
+        raise ValueError(f"the Poseidon proofs are k={fx.k} {fx.scheme}, not k={k} {scheme}")
+    fn = build_verifier(fx.protocol, fx.As, fx.svk, device=device, transcript_kind=transcript)
+    return fn, tiled(fx, batch, device)
+
+
+def aggregation_entry(batch: int = AGGREGATION_BATCH, device="cuda"):
+    """Returns ``(fn, (proof_bytes, instances))``: the Poseidon-transcript
+    verifier of the k = 20 outer snark, which also decides both of its
+    accumulators per proof, and the outer proof tiled to ``batch`` on
+    ``device``.  ``fn``'s coordinate outputs are (2, batch, 16): the fresh
+    accumulator, then the one decoded from the instances."""
+    fx = aggregation_fixture()
+    fn = build_verifier(fx.protocol, fx.As, fx.svk, device=device, decide_dk=fx.dk, transcript_kind="poseidon")
+    return fn, tiled(fx, batch, device)
 
 
 def fold_scalars(batch: int, generator: torch.Generator, device="cuda"):
@@ -112,21 +171,44 @@ def decide_entry(device="cuda", batch: int = BATCH, seed: int = 0, k: int = K, s
     return decider, (out["lhs_x"], out["lhs_y"], out["rhs_x"], out["rhs_y"], fold)
 
 
-def native_accumulator(fx: Fixture, proof: bytes, instances):
-    """(lhs, rhs) affine int pairs from the python-int succinct verifier."""
+def native_accumulators(fx: Fixture, proof: bytes, instances):
+    """Every accumulator, as (lhs, rhs) affine int pairs, from the
+    python-int succinct verifier with the fixture's transcript."""
     loader = NativeLoader()
     verifier = PlonkSuccinctVerifier(fx.As)
     loaded = fx.protocol.loaded(loader)
     ins = [[loader.load_const(v) for v in col] for col in instances]
-    transcript = NativeEvmTranscript(proof, loader)
+    transcript = NATIVE_TRANSCRIPTS[fx.transcript](proof, loader)
     proof_obj = verifier.read_proof(fx.svk, loaded, ins, transcript)
-    acc = verifier.verify(fx.svk, loaded, ins, proof_obj)[0]
-    return acc.lhs.value, acc.rhs.value
+    return [(acc.lhs.value, acc.rhs.value) for acc in verifier.verify(fx.svk, loaded, ins, proof_obj)]
+
+
+def native_accumulator(fx: Fixture, proof: bytes, instances):
+    """(lhs, rhs) affine int pairs of the first accumulator."""
+    return native_accumulators(fx, proof, instances)[0]
 
 
 def host_decide(fx: Fixture, lhs, rhs) -> bool:
     """e(lhs, g2) * e(rhs, -s g2) == 1 with the host pairing oracle."""
     return bn254.pairing_check([(lhs, fx.dk.g2), (rhs, bn254.g2_neg(fx.dk.s_g2))])
+
+
+def corrupt_compressed(proof: bytes, offset: int, out_of_range: bool) -> bytes:
+    """Corrupt the compressed point at ``offset`` of a Poseidon proof: with
+    ``out_of_range`` its x becomes >= p (the top bits set), else x moves by
+    the least amount that makes x^3 + 3 a non-residue, so no y exists."""
+    bad = bytearray(proof)
+    if out_of_range:
+        bad[offset + 31] |= 0x7F
+        return bytes(bad)
+    x = int.from_bytes(bytes(bad[offset : offset + 31]) + bytes([bad[offset + 31] & 0x7F]), "little")
+    while True:
+        x = (x + 1) % bn254.P
+        c = (pow(x, 3, bn254.P) + bn254.G1_B) % bn254.P
+        if pow(c, (bn254.P - 1) // 2, bn254.P) == bn254.P - 1:
+            break
+    bad[offset : offset + 32] = (x | ((bad[offset + 31] >> 7) << 255)).to_bytes(32, "little")
+    return bytes(bad)
 
 
 def corrupt(proof: bytes) -> bytes:

@@ -1,6 +1,7 @@
 """Kernel K4, the batched small MSM by point scan, with its plain version and
-the batched MSM built on it (``msm_batched_fused``); kernel K6, the Horner
-window combine of the large MSM, with its plain version.
+the batched MSM built on it (``msm_batched_fused``); kernels K8 and K9, the
+two-kernel form of the same MSM, with their plain versions; kernel K6, the
+Horner window combine of the large MSM, with its plain version.
 
 K4 (``csrc/msm.cu``) replaces ``snark_verifier_tpu/ops/msm_pallas.py``
 ``_scan_kernel_body`` (``_scan_call``, driven by ``msm_batched_fused``): one
@@ -15,6 +16,19 @@ tensors), laid out ``(9, 3, n, B, 16)``.  ``msm_scan_plain`` runs the same
 point operations in the same order as the kernel, so the two agree limb for
 limb on the same tables.
 
+K8 ``msm_window`` and K9 ``msm_horner`` (``csrc/msm.cu``) replace
+``msm_pallas.py`` ``_window_kernel_body`` (``_window_call``) and
+``_horner_kernel_body`` (``_horner_call``), which the JAX package runs when
+its one-kernel scan is off (``SVTPU_MSM_MEGA=0``, and always on its CPU
+path).  Per window, most significant first: K8 sums each proof's selected
+entries T_i[|d_i|] (y negated for d_i < 0), starting from the first point's
+selection; K9 computes acc = 16 acc + contrib with acc starting at the
+identity.  ``MEGA`` picks the form: True runs K4 (one launch per MSM), False
+K8/K9 (64 launches of each per MSM).  It starts from the environment
+variable ``SVTPU_TORCH_MSM_MEGA`` (default "1") and ``msm_batched_fused``
+reads it at every call.  ``msm_window_plain`` and ``msm_horner_plain`` run
+the same point operations in the same order as their kernels.
+
 K6 (``csrc/msm.cu``) replaces ``curve_pallas.py`` ``_horner_w_kernel``
 (``horner_combine_pallas``): sum_w 2^(w * window) T_w over the per-window
 bucket totals of ``msm.msm_serial``, one accumulator per MSM.
@@ -26,6 +40,7 @@ add per window, most significant first; the kernel runs the same operations.
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 
@@ -42,6 +57,10 @@ WINDOW = 4
 NWINDOWS = (NLIMB * LIMB_BITS) // WINDOW  # 64 signed 4-bit windows
 NTAB = (1 << (WINDOW - 1)) + 1  # |digit| in 0..8 -> 9 table entries
 BLOCK = 128  # threads per block (a launch parameter of msm_scan)
+
+# True: the one-kernel scan K4; False: the two-kernel form K8/K9.  Read by
+# msm_batched_fused at every call.
+MEGA = os.environ.get("SVTPU_TORCH_MSM_MEGA", "1") == "1"
 
 
 def signed_digits(scalars_canon):
@@ -128,9 +147,102 @@ def msm_scan(table, digits, block: int = BLOCK) -> G1:
 msm_scan.launches = 0
 
 
+def _select(table, d, i):
+    """Entry T_i[|d|] of every proof with y negated where d < 0: table (9,
+    3, n, B, 16), d (B,) -> G1 of (B, 16)."""
+    batch = table.shape[3]
+    idx = d.abs().view(1, 1, batch, 1).expand(1, 3, batch, NLIMB)
+    x, y, z = table[:, :, i].gather(0, idx).squeeze(0).unbind(0)
+    return G1(x, torch.where((d < 0).unsqueeze(-1), F.neg(y, F.FQ), y), z)
+
+
+def msm_window_plain(table, digits) -> G1:
+    """Plain version of K8.  table (9, 3, n, B, 16); digits (B, n) int64 in
+    [-8, 8], one window.  Returns (B, 16) coordinates of sum_i T_i[|d_i|]
+    (negated where d_i < 0), the first selection starting the sum."""
+    acc = _select(table, digits[:, 0], 0)
+    for i in range(1, table.shape[2]):
+        acc = g1_add_plain(acc, _select(table, digits[:, i], i))
+    return acc
+
+
+def msm_window(table, digits) -> G1:
+    """One window of the two-kernel MSM.  CUDA tensors launch K8 (one thread
+    per proof); CPU tensors take ``msm_window_plain``.  Shapes as there."""
+    if table.dtype != torch.int64 or digits.dtype != torch.int64:
+        raise ValueError("msm_window: table and digits must be int64")
+    if table.dim() != 5 or table.shape[:2] != (NTAB, 3) or table.shape[-1] != NLIMB or table.shape[2] < 1:
+        raise ValueError(f"msm_window: table must be ({NTAB}, 3, n, B, {NLIMB}), got {tuple(table.shape)}")
+    _, _, n, batch, _ = table.shape
+    if tuple(digits.shape) != (batch, n):
+        raise ValueError(f"msm_window: digits must be ({batch}, {n}), got {tuple(digits.shape)}")
+    if not use_kernel(table, digits):
+        return msm_window_plain(table, digits)
+    table, digits = _aligned(table), digits.contiguous()
+    outs = [torch.empty(batch, NLIMB, dtype=torch.int64, device=table.device) for _ in range(3)]
+    with torch.cuda.device(table.device):
+        code = _build.library().svtpu_msm_window(
+            table.data_ptr(), digits.data_ptr(), *(o.data_ptr() for o in outs),
+            batch, n, field_arg(F.FQ), BLOCK, stream_of(table),
+        )
+    _build.check(code, "msm_window")
+    if batch:
+        msm_window.launches += 1
+    return G1(*outs)
+
+
+msm_window.launches = 0
+
+
+def msm_horner_plain(acc: G1, contrib: G1) -> G1:
+    """Plain version of K9: 16 acc + contrib, as 4 doublings and one
+    complete add, on (B, 16) coordinates."""
+    for _ in range(WINDOW):
+        acc = g1_double_plain(acc)
+    return g1_add_plain(acc, contrib)
+
+
+def msm_horner(acc: G1, contrib: G1) -> G1:
+    """acc = 16 acc + contrib.  CUDA tensors launch K9 (one thread per
+    proof); CPU tensors take ``msm_horner_plain``."""
+    check_limbs("msm_horner", *acc, *contrib)
+    if acc.x.dim() != 2 or any(c.shape != acc.x.shape for c in (*acc, *contrib)):
+        raise ValueError(f"msm_horner: acc and contrib must be six (B, {NLIMB}) tensors")
+    if not use_kernel(*acc, *contrib):
+        return msm_horner_plain(acc, contrib)
+    batch = acc.x.shape[0]
+    ins = [_aligned(c) for c in (*acc, *contrib)]
+    outs = [torch.empty(batch, NLIMB, dtype=torch.int64, device=ins[0].device) for _ in range(3)]
+    with torch.cuda.device(ins[0].device):
+        code = _build.library().svtpu_msm_horner(
+            *(t.data_ptr() for t in ins), *(o.data_ptr() for o in outs),
+            batch, field_arg(F.FQ), BLOCK, stream_of(ins[0]),
+        )
+    _build.check(code, "msm_horner")
+    if batch:
+        msm_horner.launches += 1
+    return G1(*outs)
+
+
+msm_horner.launches = 0
+
+
+def msm_windowed(table, digits) -> G1:
+    """The two-kernel MSM: for each window, most significant first, K8's
+    contribution folded in by K9, from the identity.  Shapes as
+    ``msm_scan``."""
+    batch = table.shape[3]
+    by_window = digits.permute(2, 0, 1).contiguous()  # (nwin, B, n)
+    acc = C.g1_identity((batch,), table.device)
+    for w in range(by_window.shape[0] - 1, -1, -1):
+        acc = msm_horner(acc, msm_window(table, by_window[w]))
+    return acc
+
+
 def msm_batched_fused(points: G1, scalars_canon, nwindows: int = NWINDOWS) -> G1:
     """Batched small MSM: points batch (..., n), scalars (..., n, 16)
-    canonical -> point batch (...,).
+    canonical -> point batch (...,).  ``MEGA`` (read at each call) picks K4
+    or K8/K9; the table ladder and the digits are shared.
 
     ``nwindows`` < 64 is a test hook, right only when every scalar is below
     2^(4 * nwindows - 1)."""
@@ -141,7 +253,7 @@ def msm_batched_fused(points: G1, scalars_canon, nwindows: int = NWINDOWS) -> G1
     pts = G1(*(c.reshape(B, n, NLIMB).transpose(0, 1) for c in points))
     table = build_tables(pts)
     digits = signed_digits(scalars_canon.reshape(B, n, NLIMB))[..., :nwindows]
-    acc = msm_scan(table, digits)
+    acc = msm_scan(table, digits) if MEGA else msm_windowed(table, digits)
     return G1(*(c.reshape(*batch_shape, NLIMB) for c in acc))
 
 

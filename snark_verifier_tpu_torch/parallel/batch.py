@@ -20,10 +20,19 @@ from snark_verifier_tpu_torch.ops import msm as MSM
 from snark_verifier_tpu_torch.ops import pairing as PAIR
 from snark_verifier_tpu_torch.ops.curve import G1
 from snark_verifier_tpu_torch.ops.limbs import ints_to_limbs, limbs_to_int
-from snark_verifier_tpu_torch.system.halo2.transcript_torch import TorchEvmTranscript
+from snark_verifier_tpu_torch.system.halo2.transcript_torch import TorchEvmTranscript, TorchPoseidonTranscript
 from snark_verifier_tpu_torch.verifier.plonk import PlonkSuccinctVerifier
 
 FR = F.FR
+
+
+def on_device(t: torch.Tensor, device: torch.device) -> bool:
+    """True when ``t`` lies on ``device``; a device without an index (plain
+    "cuda", the entry points' default) matches any index of its type."""
+    return t.device.type == device.type and device.index in (None, t.device.index)
+
+
+TRANSCRIPTS = {"evm": TorchEvmTranscript, "poseidon": TorchPoseidonTranscript}
 
 
 def build_verifier(protocol, As, svk, device="cuda", decide_dk=None, transcript_kind: str = "evm"):
@@ -35,17 +44,18 @@ def build_verifier(protocol, As, svk, device="cuda", decide_dk=None, transcript_
     accumulator pair (a leading axis per accumulator when there are several),
     and ``ok`` (B,), the per-proof validity mask.  With ``decide_dk`` (a
     ``KzgDecidingKey``), every accumulator's pairing check runs per proof
-    and folds into ``ok``."""
-    if transcript_kind != "evm":
-        raise NotImplementedError(
-            "the Poseidon transcript is not ported yet: ROADMAP.md section 1, item 1"
-        )
+    and folds into ``ok``.  ``transcript_kind`` "evm" reads the proofs with
+    the Keccak transcript, "poseidon" with the Poseidon transcript (the
+    aggregation snarks')."""
+    if transcript_kind not in TRANSCRIPTS:
+        raise ValueError(f"transcript_kind must be one of {sorted(TRANSCRIPTS)}, got {transcript_kind!r}")
+    transcript_cls = TRANSCRIPTS[transcript_kind]
     verifier = PlonkSuccinctVerifier(As)
     num_instance = protocol.num_instance
     device = torch.device(device)
 
     def verify_fn(proof_bytes, instances):
-        if proof_bytes.device != device or instances.device != device:
+        if not (on_device(proof_bytes, device) and on_device(instances, device)):
             raise ValueError(f"inputs must be on {device}")
         batch_shape = proof_bytes.shape[:-1]
         loader = TorchLoader(batch_shape, device)
@@ -56,7 +66,7 @@ def build_verifier(protocol, As, svk, device="cuda", decide_dk=None, transcript_
             cols.append([loader.scalar_from_mont(F.to_mont(instances[..., off + i, :], FR)) for i in range(n)])
             off += n
 
-        transcript = TorchEvmTranscript(proof_bytes, loader)
+        transcript = transcript_cls(proof_bytes, loader)
         proof = verifier.read_proof(svk, loaded, cols, transcript)
         accumulators = verifier.verify(svk, loaded, cols, proof)
         if decide_dk is not None:
@@ -121,7 +131,7 @@ def build_batch_decider(dk, device="cuda"):
     device = torch.device(device)
 
     def decide_fn(lhs_x, lhs_y, rhs_x, rhs_y, fold_scalars):
-        if any(t.device != device for t in (lhs_x, lhs_y, rhs_x, rhs_y, fold_scalars)):
+        if not all(on_device(t, device) for t in (lhs_x, lhs_y, rhs_x, rhs_y, fold_scalars)):
             raise ValueError(f"inputs must be on {device}")
         lhs = MSM.msm_serial(to_g1(lhs_x, lhs_y), fold_scalars)
         rhs = MSM.msm_serial(to_g1(rhs_x, rhs_y), fold_scalars)

@@ -92,3 +92,95 @@ class NativeEvmTranscript(TranscriptRead, TranscriptWrite):
     def finalize(self) -> bytes:
         return self.stream.getvalue()
 
+
+
+# ---------------------------------------------------------------------------
+# Poseidon transcript (native) — parity: system/halo2/transcript/halo2.rs
+# (NativeLoader impls, :175-268 read side, write side below :280).
+# Wire format: scalars 32-byte LE; points 32-byte compressed (x LE, y-parity
+# in bit 7 of byte 31; identity = all zeros).  Points absorb as
+# [x mod r, y mod r] (fe_to_fe), scalars absorb directly.
+# ---------------------------------------------------------------------------
+
+
+def compress_g1(point, curve=bn254) -> bytes:
+    if point is None:
+        return bytes(32)
+    x, y = point
+    data = bytearray(x.to_bytes(32, "little"))
+    data[31] |= (y & 1) << 7
+    return bytes(data)
+
+
+def decompress_g1(data: bytes, curve=bn254):
+    from snark_verifier_tpu_torch.util.curves import sqrt_mod
+
+    if data == bytes(32):
+        return None
+    raw = bytearray(data)
+    parity = raw[31] >> 7
+    raw[31] &= 0x7F
+    x = int.from_bytes(raw, "little")
+    if x >= curve.P:
+        raise TranscriptError("invalid compressed x coordinate")
+    y2 = (pow(x, 3, curve.P) + curve.G1_B) % curve.P
+    y = sqrt_mod(y2, curve.P)
+    if y is None:
+        raise TranscriptError("compressed point is not on the curve")
+    if y & 1 != parity:
+        y = curve.P - y
+    return (x, y)
+
+
+class NativePoseidonTranscript(TranscriptRead, TranscriptWrite):
+    def __init__(self, stream: bytes | None = None, loader: NativeLoader | None = None, spec=None):
+        from snark_verifier_tpu_torch.util.poseidon import PoseidonSponge, default_spec
+
+        self._loader = loader or NativeLoader()
+        self.stream = io.BytesIO(stream if stream is not None else b"")
+        self.sponge = PoseidonSponge(spec or default_spec())
+
+    def loader(self):
+        return self._loader
+
+    def squeeze_challenge(self) -> Scalar:
+        return self._loader.load_const(self.sponge.squeeze())
+
+    def common_scalar(self, scalar: Scalar):
+        self.sponge.update([scalar.value])
+
+    def common_ec_point(self, ec_point: EcPoint):
+        if ec_point.value is None:
+            raise TranscriptError("cannot absorb the identity point")
+        x, y = ec_point.value
+        self.sponge.update([x % bn254.R, y % bn254.R])
+
+    def read_scalar(self) -> Scalar:
+        data = self.stream.read(32)
+        if len(data) != 32:
+            raise TranscriptError("unexpected end of proof stream")
+        value = int.from_bytes(data, "little")
+        if value >= self._loader.curve.R:
+            raise TranscriptError("invalid scalar encoding in proof")
+        scalar = self._loader.load_const(value)
+        self.common_scalar(scalar)
+        return scalar
+
+    def read_ec_point(self) -> EcPoint:
+        data = self.stream.read(32)
+        if len(data) != 32:
+            raise TranscriptError("unexpected end of proof stream")
+        pt = EcPoint(self._loader, decompress_g1(data, self._loader.curve))
+        self.common_ec_point(pt)
+        return pt
+
+    def write_scalar(self, scalar: Scalar):
+        self.common_scalar(scalar)
+        self.stream.write(scalar.value.to_bytes(32, "little"))
+
+    def write_ec_point(self, ec_point: EcPoint):
+        self.common_ec_point(ec_point)
+        self.stream.write(compress_g1(ec_point.value, self._loader.curve))
+
+    def finalize(self) -> bytes:
+        return self.stream.getvalue()

@@ -7,6 +7,8 @@ outputs are compared in affine form, except where the port runs the JAX
 algorithm itself (``msm_batched_windowed``), which must match limb for limb.
 """
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -63,14 +65,22 @@ def small_tier(monkeypatch):
     MP.msm_batched_fused.clear_cache()
 
 
+@functools.lru_cache(maxsize=None)
+def fused_case():
+    """B = 3 proofs of n = 8 terms with 32-bit scalars, and the JAX fused
+    MSM's affine output at 9 signed windows (its test hook), computed once
+    per process; call it under ``small_tier``."""
+    B, n = 3, 8
+    jg, scal, want = case(100 * B + n, B, n, scalar_bits=32)
+    return jg, scal, want, JC.g1_to_affine_ints(MP.msm_batched_fused(jg, scal, 9))
+
+
 def test_msm_fused_matches_jax_fused(small_tier):
     """9 signed windows (32-bit scalars), the JAX fused MSM's test hook, at
     B = 3 proofs of n = 8 terms."""
-    B, n = 3, 8
-    jg, scal, want = case(100 * B + n, B, n, scalar_bits=32)
+    jg, scal, want, jax_out = fused_case()
     got = MK.msm_batched_fused(g1_from_numpy(jg, "cpu"), limbs_to_tensor(scal, "cpu"), 9)
-    jax_out = MP.msm_batched_fused(jg, scal, 9)
-    assert C.g1_to_affine_ints(got) == JC.g1_to_affine_ints(jax_out) == want
+    assert C.g1_to_affine_ints(got) == jax_out == want
 
 
 @pytest.fixture(scope="module")

@@ -41,6 +41,10 @@ COPIES = {
     "util/msm_symbolic.py": (),
     "util/transcript.py": (),
     "util/keccak.py": (),
+    "util/poseidon.py": (),
+    "util/poseidon_opt.py": (),
+    "util/curves.py": (),
+    "util/metrics.py": (),
     "ops/limbs.py": (),
     "loader/__init__.py": (),
     "loader/native.py": (),
@@ -58,9 +62,8 @@ COPIES = {
     "pcs/kzg/gwc19.py": (),
     "system/__init__.py": (),
     "system/halo2/__init__.py": (),
-    "system/halo2/transcript.py": (
-        "NativeBlake2bTranscript", "compress_g1", "decompress_g1", "NativePoseidonTranscript",
-    ),
+    "system/halo2/transcript.py": ("NativeBlake2bTranscript",),
+    "sdk/aggregation.py": ("aggregate_in_circuit",),
 }
 
 BLOCK_JAX = """
@@ -82,6 +85,8 @@ for name in names:
 import chip_smoke
 from snark_verifier_tpu_torch import entry
 entry.fixture()
+entry.poseidon_fixture()
+entry.aggregation_fixture()
 assert not [m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
 print(len(names))
 """
@@ -156,13 +161,16 @@ def test_build_command_targets_the_ignored_build_dir():
     assert "-shared" in link and link[link.index("-o") + 1] == str(out) and link[-len(objs):] == list(map(str, objs))
     assert _build.KERNEL_SOURCES == ("field.cu", "curve.cu", "msm.cu", "tower.cu")
     assert all((_build.CSRC_DIR / s).exists() for s in _build.KERNEL_SOURCES + _build.HEADERS)
-    assert set(_build.SIGNATURES) >= {"svtpu_g1_add_select", "svtpu_horner_combine", "svtpu_fq12_mul"}
+    assert set(_build.SIGNATURES) >= {
+        "svtpu_g1_add_select", "svtpu_horner_combine", "svtpu_fq12_mul", "svtpu_msm_window", "svtpu_msm_horner",
+    }
     assert len(_build.source_hash()) == 16
 
 
 def test_wrappers_route_cpu_tensors_to_plain_and_validate():
     a = convert.limbs_to_tensor(F.FQ.encode([3, 5]), "cpu")
-    wrappers = (FK.mont_mul, CK.g1_add, CK.g1_double, MK.msm_scan, CK.g1_add_select, MK.horner_combine, TC.fq12_mul_flat)
+    wrappers = (FK.mont_mul, CK.g1_add, CK.g1_double, MK.msm_scan, CK.g1_add_select, MK.horner_combine, TC.fq12_mul_flat,
+                MK.msm_window, MK.msm_horner)
     launches = [w.launches for w in wrappers]
     assert torch.equal(FK.mont_mul(a, a, F.FQ), FK.mont_mul_plain(a, a, F.FQ))
     g = C.g1_from_affine_ints([None, (1, 2)], "cpu")
@@ -197,3 +205,46 @@ def test_convert_round_trips_jax_side_numpy():
     assert isinstance(params["named"], C.G1) and torch.equal(params["named"].y, g.y)
     assert all(torch.equal(x, y) for x, y in zip(params["point"], g))
     assert F.FR.decode(convert.ints_to_tensor([7, 9], "cpu")).tolist() == [F.FR.from_mont_int(7), F.FR.from_mont_int(9)]
+
+
+def test_mega_is_read_at_every_call(monkeypatch):
+    """``msm_cuda.MEGA`` picks the one-kernel scan (K4) or the two-kernel
+    form (K8/K9) at each call of ``msm_batched_fused``, not at import; it
+    starts from SVTPU_TORCH_MSM_MEGA ("1" unless set)."""
+    from snark_verifier_tpu_torch.util import bn254
+
+    calls = []
+    monkeypatch.setattr(MK, "msm_scan", lambda *a: calls.append("scan") or MK.msm_scan_plain(*a))
+    monkeypatch.setattr(MK, "msm_window", lambda *a: calls.append("window") or MK.msm_window_plain(*a))
+    g = C.g1_from_affine_ints([(1, 2), None], "cpu")
+    pts = C.G1(*(c.reshape(1, 2, 16) for c in g))
+    scalars = convert.ints_to_tensor([3, 5], "cpu").reshape(1, 2, 16)
+    for mega in (True, False, True):
+        calls.clear()
+        monkeypatch.setattr(MK, "MEGA", mega)
+        assert C.g1_to_affine_ints(MK.msm_batched_fused(pts, scalars, 1)) == [bn254.g1_mul((1, 2), 3)]
+        assert calls == (["scan"] if mega else ["window"])
+    env = _env()
+    env.pop("SVTPU_TORCH_MSM_MEGA", None)
+    for value, want in ((None, True), ("0", False)):
+        if value is not None:
+            env["SVTPU_TORCH_MSM_MEGA"] = value
+        proc = subprocess.run(
+            [sys.executable, "-c", "from snark_verifier_tpu_torch.ops import msm_cuda; print(msm_cuda.MEGA)"],
+            capture_output=True, text=True, env=env, cwd=REPO, timeout=120,
+        )
+        assert proc.stdout.strip() == str(want), proc.stderr
+
+
+def test_device_check_accepts_the_default_cuda_device():
+    """``build_verifier``/``build_batch_decider`` default to "cuda", while
+    tensors created there report "cuda:0": the input check takes a device
+    without an index as any index of its type."""
+    from types import SimpleNamespace
+
+    from snark_verifier_tpu_torch.parallel.batch import on_device
+
+    cuda0, cuda1 = SimpleNamespace(device=torch.device("cuda", 0)), SimpleNamespace(device=torch.device("cuda", 1))
+    assert on_device(cuda0, torch.device("cuda")) and on_device(cuda1, torch.device("cuda"))
+    assert on_device(cuda0, torch.device("cuda", 0)) and not on_device(cuda1, torch.device("cuda", 0))
+    assert not on_device(torch.zeros(1), torch.device("cuda")) and on_device(torch.zeros(1), torch.device("cpu"))

@@ -101,12 +101,14 @@ def test_corrupted_proof_and_wrong_instance(jax_gwc):
 
 
 def test_decide_and_poseidon_are_not_ported_yet():
-    """The pairing decide is ported (test_torch_decide.py); the Poseidon
-    transcript and the IPA decide are not yet, and say where they stand."""
+    """The pairing decide (test_torch_decide.py) and the Poseidon transcript
+    (test_torch_poseidon.py) are ported; an unknown transcript is refused,
+    and the IPA decide, not ported yet, says where it stands."""
     fx = E.fixture()
     build_verifier(fx.protocol, fx.As, fx.svk, device="cpu", decide_dk=fx.dk)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_verifier(fx.protocol, fx.As, fx.svk, device="cpu", transcript_kind="poseidon")
+    build_verifier(fx.protocol, fx.As, fx.svk, device="cpu", transcript_kind="poseidon")
+    with pytest.raises(ValueError, match="transcript_kind"):
+        build_verifier(fx.protocol, fx.As, fx.svk, device="cpu", transcript_kind="blake2b")
     from snark_verifier_tpu_torch.loader.torch_loader import TorchLoader
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
