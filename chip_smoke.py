@@ -15,7 +15,8 @@ of both its accumulators) and config 4's aggregation fold:
    for bit, at the main path's shapes, with both times (CUDA events, median
    of 5 runs after a warm-up) and the least time the card could take
    (bound); K4 at 32 to 256 threads per block; K8 and K9 (the two-kernel
-   small MSM) at K4's shape, and the 64-window MSM they make against K4 and
+   small MSM) also at K4's shape (reported beside their path's numbers as
+   ``at_config1_shape``), and the 64-window MSM they make against K4 and
    the oracle;
 4. slice: 1820 proofs (4 unique ones tiled, 2 rows with a corrupted
    commitment, 1 row with a wrong instance) from the data-file fixture;
@@ -42,7 +43,10 @@ of both its accumulators) and config 4's aggregation fold:
    both accumulators decided per proof) with ``MEGA`` on (K4) and off
    (K8/K9): both accumulators equal the native verifier's, ``ok`` all True,
    a mutated proof byte and a flipped instance limb clear it, the two runs
-   agree; warm times, and a profile of the ``MEGA``-off run;
+   agree; warm times, and a profile of the ``MEGA``-off run; then K8 and K9
+   against their plain versions, bit for bit, on the inputs of that run's
+   first two-kernel MSM (the kernels line reports their times and bounds at
+   this shape);
 10. config 4: the port's ``aggregate_native`` folds the four Poseidon
    snarks on the host, the card decides the fold (True) and decodes its 16
    instance limbs back to it.
@@ -104,6 +108,9 @@ INT32_MULS_PER_S = 132 * 64 * 1.98e9
 MULS_PER_MONT = 2 * (64 + 64) + 8
 FE_BYTES = 32  # one field element (or one scalar's 64 signed 4-bit digits) as the function needs it
 MONT_PER = {"add": 12, "double": 8, "fq12": 54}  # Montgomery products per operation
+# utility ops torch.profiler leaves out of its event list
+UNLISTED_OPS = {"[memory]", "[OutOfMemory]", "profiler::_record_function_enter", "profiler::_record_function_enter_new",
+                "profiler::_record_function_exit", "aten::is_leaf", "aten::output_nr", "aten::_version"}
 
 
 def log(msg: str) -> None:
@@ -523,15 +530,23 @@ def phase_aggregation(torch, dev, card):
     bad = tuple(a.clone() for a in args)
     bad[0][1, 7] ^= 1  # one byte of the proof (row 1)
     bad[1][2, FLIPPED_LIMB, 0] ^= 1  # one bit of one instance limb (row 2)
-    runs = {}
+    runs, captured = {}, []
+    windowed = MK.msm_windowed
+
+    def capturing(table, digits):  # keeps the inputs of the path's two-kernel MSMs; launches nothing
+        captured.append((table, digits))
+        return windowed(table, digits)
+
     for mega, required, absent in ((True, AGG_MEGA_KERNELS, ("msm_window", "msm_horner")),
                                    (False, AGG_WINDOWED_KERNELS, ("msm_scan",))):
         MK.MEGA = mega
+        MK.msm_windowed = capturing
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out, launches = count_launches(torch, lambda: fn(*args), required, absent)
             first_s = time.perf_counter() - t0
+            MK.msm_windowed = windowed
             require(tuple(out["lhs_x"].shape) == (2, AGG_BATCH, 16), "aggregation: outputs must be (2, B, 16)")
             for row in range(AGG_BATCH):
                 got = [decode_accumulator({k: v[a] for k, v in out.items() if k != "ok"}, row) for a in range(2)]
@@ -549,11 +564,51 @@ def phase_aggregation(torch, dev, card):
                 per_launch, least = profile_run(torch, "aggregation MEGA off", "msm_window", fn, args, warm)
             runs[mega] = (out, launches, per_launch, least)
         finally:
-            MK.MEGA = True
+            MK.MEGA, MK.msm_windowed = True, windowed
     on, off = runs[True][0], runs[False][0]
     require(all(torch.equal(on[k], off[k]) for k in on), "aggregation: MEGA on and off must agree")
     log("aggregation: MEGA on and off give the same affine accumulators and ok")
-    return runs[False][1], runs[False][2], runs[False][3]
+    require(len(captured) == runs[False][1]["msm_window"] // MK.NWINDOWS > 0,
+            "aggregation: every two-kernel MSM of the MEGA-off run must be captured")
+    return runs[False][1], runs[False][2], runs[False][3], captured[0]
+
+
+def phase_kernels_on_path(torch, table, digits):
+    """K8 and K9 against their plain versions on the card, bit for bit, on
+    the inputs of the outer snark's first two-kernel MSM (captured in its
+    MEGA-off run): one middle window, its Horner step onto the identity (as
+    the MSM's first window runs) and onto a projective accumulator."""
+    from snark_verifier_tpu_torch.ops import curve as C
+    from snark_verifier_tpu_torch.ops import msm_cuda as MK
+
+    _, _, n, batch, _ = table.shape
+    w = MK.NWINDOWS // 2 - 1
+    dig_w, dig_next = digits[..., w].contiguous(), digits[..., w + 1].contiguous()
+    contrib, want = MK.msm_window(table, dig_w), MK.msm_window_plain(table, dig_w)
+    torch.cuda.synchronize()
+    require(all(torch.equal(g, x) for g, x in zip(contrib, want)), "msm_window (outer snark's shape): kernel != plain")
+    err = max_abs_err(torch, contrib, want)
+    ms, plain_ms = cuda_ms(torch, lambda: MK.msm_window(table, dig_w)), cuda_ms(torch, lambda: MK.msm_window_plain(table, dig_w))
+    results = {"msm_window": {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "shape": {"B": batch, "n": n},
+                              **bound((3 * batch * n + 3 * batch) * FE_BYTES + batch * n // 2,
+                                      (n - 1) * MONT_PER["add"] * batch)}}
+    log(f"kernel msm_window (outer snark's MSM: B={batch}, n={n}, window {w}): equal to plain; kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {results['msm_window']['bound_ms']:.6f} ms ({results['msm_window']['bound_by']})")
+
+    acc = MK.msm_window(table, dig_next)  # a projective accumulator (z != 1)
+    errs = []
+    for start in (C.g1_identity((batch,), table.device), acc):
+        got, want = MK.msm_horner(start, contrib), MK.msm_horner_plain(start, contrib)
+        torch.cuda.synchronize()
+        require(all(torch.equal(g, x) for g, x in zip(got, want)), "msm_horner (outer snark's shape): kernel != plain")
+        errs.append(max_abs_err(torch, got, want))
+    ms, plain_ms = cuda_ms(torch, lambda: MK.msm_horner(acc, contrib)), cuda_ms(torch, lambda: MK.msm_horner_plain(acc, contrib))
+    results["msm_horner"] = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "shape": {"B": batch},
+                             **bound(9 * batch * FE_BYTES, (WINDOW_DBLS * MONT_PER["double"] + MONT_PER["add"]) * batch)}
+    log(f"kernel msm_horner (outer snark's MSM: B={batch}, from the identity and from a projective accumulator): "
+        f"equal to plain; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {results['msm_horner']['bound_ms']:.6f} ms ({results['msm_horner']['bound_by']})")
+    return results
 
 
 def phase_config4(torch, dev, card):
@@ -682,19 +737,25 @@ def profile_run(torch, label, anchor, fn, args, warm_s: float, ranges=()) -> dic
     the profiler recorded no ``anchor``)."""
     from torch.profiler import ProfilerActivity, profile
 
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn(*args)
         torch.cuda.synchronize()
-    events = prof.events()
-    # a record_function range also appears on the device timeline, spanning
-    # its kernels and the idle gaps between them: not a kernel, so left out
-    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in ranges]
-    host_ops = sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith("aten::"))
+    if ranges:  # the ranges need the profiler's event tree, which takes minutes to build for a million ops
+        events = prof.events()
+        # a record_function range also appears on the device timeline, spanning
+        # its kernels and the idle gaps between them: not a kernel, so left out
+        device = [(e.name, e.device_time_total) for e in events if e.device_type == cuda and e.name not in ranges]
+        host_ops = sum(1 for e in events if e.device_type == cpu and e.name.startswith("aten::"))
+    else:  # the same events read raw, as the tree is built from them (and with the same names left out)
+        raw = [e for e in prof.profiler.kineto_results.events() if e.name() not in UNLISTED_OPS]
+        device = [(e.name(), e.duration_ns() / 1e3) for e in raw if e.device_type() == cuda]
+        host_ops = sum(1 for e in raw if e.device_type() == cpu and e.name().startswith("aten::"))
     by = {}
-    for e in device:
-        key = next((k for k in KERNELS if f"{k}_kernel" in e.name), "plain torch")
-        count, us = by.get(key, (0, 0.0))
-        by[key] = (count + 1, us + e.device_time_total)
+    for name, us in device:
+        key = next((k for k in KERNELS if f"{k}_kernel" in name), "plain torch")
+        count, total = by.get(key, (0, 0.0))
+        by[key] = (count + 1, total + us)
     if anchor not in by:  # the launch counters, not the profiler, prove the path
         log(f"{label} profile: the profiler recorded no {anchor} kernel; device busy share not measured")
         return {}, None
@@ -703,8 +764,9 @@ def profile_run(torch, label, anchor, fn, args, warm_s: float, ranges=()) -> dic
     parts = ", ".join(f"{k} {c} launches {us / 1e3:.3f} ms" for k, (c, us) in ranked)
     log(f"{label} profile (one warm run): device busy {busy_ms:.3f} ms over {len(device)} device ops "
         f"= {100 * busy_ms / 1e3 / warm_s:.1f} % of the {warm_s:.4f} s warm wall; {host_ops} host aten ops; {parts}")
-    log_ranges(torch, label, events, ranges, busy_ms, host_ops)
-    least = min(e.device_time_total for e in device if any(f"{k}_kernel" in e.name for k in KERNELS)) / 1e3
+    if ranges:
+        log_ranges(torch, label, events, ranges, busy_ms, host_ops)
+    least = min(us for name, us in device if any(f"{k}_kernel" in name for k in KERNELS)) / 1e3
     return {k: us / c / 1e3 for k, (c, us) in by.items() if k in KERNELS}, least
 
 
@@ -864,7 +926,7 @@ def main() -> int:
         log(f"[{time.perf_counter() - t_start:.1f} s] {phase} done")
 
     results, msm_case = phase_kernels(torch, dev, rng)
-    results.update(phase_kernels_windowed(torch, dev, msm_case))
+    config1_windowed = phase_kernels_windowed(torch, dev, msm_case)
     del msm_case
     results.update(phase_kernels_decide(torch, dev, rng))
     done("kernels")
@@ -878,7 +940,11 @@ def main() -> int:
     done("large MSM")
     poseidon_least = phase_poseidon(torch, dev, smi)
     done("poseidon")
-    agg_launches, agg_per_launch, agg_least = phase_aggregation(torch, dev, smi)
+    agg_launches, agg_per_launch, agg_least, agg_msm = phase_aggregation(torch, dev, smi)
+    on_path = phase_kernels_on_path(torch, *agg_msm)
+    del agg_msm
+    for name, res in on_path.items():  # the path's shape first, config 1's shape beside it
+        results[name] = {**res, "at_config1_shape": {"B": B, "n": N_TERMS, **config1_windowed[name]}}
     done("aggregation")
     phase_config4(torch, dev, smi)
     done("config 4")

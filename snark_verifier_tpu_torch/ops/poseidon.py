@@ -1,16 +1,12 @@
 """Batched Poseidon permutation and sponge over int64 limb tensors.
 
 Counterpart of ``snark_verifier_tpu/ops/poseidon.py``: the state is
-``(..., t, 16)`` Montgomery Fr limbs, and both evaluation forms give the same
-limbs as the JAX package and the python-int oracle (``util/poseidon.py``):
-
-* ``permutation_raw``: the r_f + r_p rounds with the raw round constants,
-  a dense t x t MDS every round, the sbox on every word in full rounds and
-  on word 0 in partial rounds;
-* ``permutation`` (the default): the sparse form of ``util/poseidon_opt.py``
-  (start full rounds, the pre-sparse boundary round, partial rounds with a
-  sparse row/column matrix, end full rounds with a zero-padded last row of
-  constants), about 2.6x fewer Montgomery products.
+``(..., t, 16)`` Montgomery Fr limbs, and ``permutation`` gives the same
+limbs as the JAX package and the python-int oracle (``util/poseidon.py``).
+It is the sparse form of ``util/poseidon_opt.py`` (start full rounds, the
+pre-sparse boundary round, partial rounds with a sparse row/column matrix,
+end full rounds with a zero-padded last row of constants), about 2.6x fewer
+Montgomery products than the raw rounds.
 
 Where the JAX package runs the rounds as ``lax.scan``, the port runs a
 Python loop over them.  The Montgomery products go through ``field.mont_mul``
@@ -31,8 +27,8 @@ from snark_verifier_tpu_torch.util.poseidon_opt import optimize_spec
 
 FR = F.FR
 
-_NUMPY_CACHE: dict = {}  # (kind, id(spec)) -> (spec, numpy arrays)
-_DEVICE_CACHE: dict = {}  # (kind, id(spec), device) -> tensors
+_NUMPY_CACHE: dict = {}  # id(spec) -> (spec, numpy arrays)
+_DEVICE_CACHE: dict = {}  # (id(spec), device) -> tensors
 
 
 def _enc(v: int) -> np.ndarray:
@@ -41,11 +37,6 @@ def _enc(v: int) -> np.ndarray:
 
 def _enc_rows(rows) -> np.ndarray:
     return np.array([[_enc(c) for c in row] for row in rows], np.int64)
-
-
-def _raw_arrays(spec):
-    """Raw-form constants: round constants (rounds, t, 16), MDS (t, t, 16)."""
-    return {"rc": _enc_rows(spec.round_constants), "mds": _enc_rows(spec.mds)}
 
 
 def _opt_arrays(spec):
@@ -63,21 +54,20 @@ def _opt_arrays(spec):
     }
 
 
-def spec_arrays(spec, kind: str = "opt") -> dict:
-    """The spec's constants as numpy int64 limb arrays (``kind`` "raw" or
-    "opt"), built once per spec."""
-    key = (kind, id(spec))
+def spec_arrays(spec) -> dict:
+    """The spec's sparse-form constants as numpy int64 limb arrays, built
+    once per spec."""
+    key = id(spec)
     if key not in _NUMPY_CACHE:
-        _NUMPY_CACHE[key] = (spec, (_opt_arrays if kind == "opt" else _raw_arrays)(spec))  # spec kept alive for id()
+        _NUMPY_CACHE[key] = (spec, _opt_arrays(spec))  # spec kept alive for id()
     return _NUMPY_CACHE[key][1]
 
 
-def _tensors(spec, kind: str, device) -> dict:
+def _tensors(spec, device) -> dict:
     device = torch.device(device)
-    key = (kind, id(spec), device)
+    key = (id(spec), device)
     if key not in _DEVICE_CACHE:
-        arrays = spec_arrays(spec, kind)
-        _DEVICE_CACHE[key] = {k: torch.as_tensor(v, device=device) for k, v in arrays.items()}
+        _DEVICE_CACHE[key] = {k: torch.as_tensor(v, device=device) for k, v in spec_arrays(spec).items()}
     return _DEVICE_CACHE[key]
 
 
@@ -112,31 +102,13 @@ def _mds_apply(mat, st):
     return acc
 
 
-def permutation_raw(spec, state, inputs):
-    """state: (..., t, 16) Montgomery; inputs: list of (..., 16) Montgomery
-    scalars (fewer than t).  Returns the new state."""
-    c = _tensors(spec, "raw", state.device)
-    rc, mds = c["rc"], c["mds"]
-    half, rounds = spec.r_f // 2, spec.r_f + spec.r_p
-    st = _absorb(state, inputs, rc[0])
-    for r in range(rounds):
-        if half <= r < half + spec.r_p:  # partial round: sbox on word 0 only
-            st = torch.cat([_sbox(st[..., :1, :]), st[..., 1:, :]], dim=-2)
-        else:
-            st = _sbox(st)
-        st = _mds_apply(mds, st)
-        if r + 1 < rounds:  # the next round's constants (none after the last)
-            st = F.add(st, rc[r + 1], FR)
-    return st
-
-
 def permutation(spec, state, inputs):
-    """The sparse-form permutation, bit-identical to ``permutation_raw``.
+    """The sparse-form permutation.
 
     state: (..., t, 16) Montgomery; inputs: list of (..., 16) Montgomery
     scalars (fewer than t).  A partial round is 5 Montgomery products (t =
     5) instead of the raw form's 8."""
-    c = _tensors(spec, "opt", state.device)
+    c = _tensors(spec, state.device)
     half = spec.r_f // 2
     st = _absorb(state, inputs, c["c_start"][0])
 

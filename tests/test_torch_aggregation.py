@@ -1,10 +1,10 @@
 """The port's aggregation path on the CPU: the k=20 outer aggregation snark
 verified with the Poseidon transcript and both of its accumulators decided
-(``entry.aggregation_entry``), with ``MEGA`` on (kernel K4's plain version)
-and off (K8/K9's), and config 4's fold (the port's copy of
-``sdk/aggregation.aggregate_native``) followed by a decide, against the JAX
-package's native verifier, its native KZG decide and its
-``aggregate_native``.
+(``entry.aggregation_entry``), with ``MEGA`` on (kernel K4's plain
+version); its small MSMs again with ``MEGA`` off (K8/K9's); and config 4's
+fold (the port's copy of ``sdk/aggregation.aggregate_native``) followed by a
+decide, against the JAX package's native verifier, its native KZG decide and
+its ``aggregate_native``.
 
 The outer snark runs at B = 3 rows, one verify for all the cases: the
 outer proof, the proof with one byte mutated (``bad[7] ^= 1``, as
@@ -26,9 +26,10 @@ from snark_verifier_tpu_torch import entry as E
 from snark_verifier_tpu_torch import sdk as PSDK
 from snark_verifier_tpu_torch.loader.torch_loader import TorchLoader
 from snark_verifier_tpu_torch.ops import curve as C
+from snark_verifier_tpu_torch.ops import msm as M
 from snark_verifier_tpu_torch.ops import msm_cuda as MK
 from snark_verifier_tpu_torch.ops import pairing as PAIR
-from snark_verifier_tpu_torch.parallel.batch import build_verifier, decode_accumulator
+from snark_verifier_tpu_torch.parallel.batch import decode_accumulator
 from snark_verifier_tpu_torch.pcs.kzg import KzgGwc
 from snark_verifier_tpu_torch.pcs.kzg.accumulator import accumulator_to_limbs
 from snark_verifier_tpu_torch.sdk import aggregation as PAGG
@@ -46,35 +47,29 @@ def outer_batch(fn_args):
     return proofs, instances
 
 
-def run_outer(monkeypatch, mega: bool, decide: bool):
-    """The outer batch through ``entry.aggregation_entry`` (with the decide),
-    or through the same Poseidon verifier without the decide."""
-    monkeypatch.setattr(MK, "MEGA", mega)
-    if decide:
-        fn, args = E.aggregation_entry(batch=len(ROWS), device="cpu")
-    else:
-        fx = E.aggregation_fixture()
-        fn = build_verifier(fx.protocol, fx.As, fx.svk, device="cpu", transcript_kind="poseidon")
-        args = E.tiled(fx, len(ROWS), "cpu")
-    return fn(*outer_batch(args))
+@pytest.fixture(scope="module")
+def outer_msms():
+    """(points, scalars, output) of each small MSM of the ``mega_on`` run."""
+    return []
 
 
 @pytest.fixture(scope="module")
-def module_patch():
+def mega_on(outer_msms):
+    """The outer batch through ``entry.aggregation_entry`` with MEGA on (the
+    one-kernel scan) and the decide of both accumulators; its small MSMs
+    are recorded in ``outer_msms``."""
+    fused = M.msm_batched_fused
+
+    def recording(points, scalars):
+        out = fused(points, scalars)
+        outer_msms.append((points, scalars, out))
+        return out
+
     with pytest.MonkeyPatch.context() as mp:
-        yield mp
-
-
-@pytest.fixture(scope="module")
-def mega_on(module_patch):
-    """MEGA on (the one-kernel scan), with the decide of both accumulators."""
-    return run_outer(module_patch, mega=True, decide=True)
-
-
-@pytest.fixture(scope="module")
-def mega_off(module_patch):
-    """MEGA off (the two-kernel form), the succinct verify alone."""
-    return run_outer(module_patch, mega=False, decide=False)
+        mp.setattr(MK, "MEGA", True)
+        mp.setattr(M, "msm_batched_fused", recording)
+        fn, args = E.aggregation_entry(batch=len(ROWS), device="cpu")
+        return fn(*outer_batch(args))
 
 
 @pytest.fixture(scope="module")
@@ -117,16 +112,24 @@ def test_outer_snark_decides_and_rejects_mutation_and_limb_flip(mega_on):
     assert mega_on["ok"].tolist() == [True, False, False]
 
 
-def test_outer_snark_mega_off_matches_mega_on(mega_on, mega_off, jax_outer):
-    """The two-kernel MSM gives the same affine accumulators as the one-kernel
-    scan for every row whose points are on the curve (the outer proof, the
-    flipped limb), and the succinct ``ok`` already rejects the mutated byte
-    (a non-residue x) and the flipped limb (an off-curve old accumulator)."""
-    _, want = jax_outer
-    assert accumulators(mega_off, 0) == want
-    for row in (0, 2):
-        assert accumulators(mega_off, row) == accumulators(mega_on, row)
-    assert mega_off["ok"].tolist() == [True, False, False]
+def test_outer_snark_mega_off_matches_mega_on(mega_on, outer_msms, monkeypatch):
+    """The outer snark's small MSMs (36 and 3 terms per proof), on the inputs
+    the verify gave them, with ``MEGA`` off: the two-kernel form, never the
+    scan, gives the scan's points in affine form for every row whose points
+    are on the curve (the outer proof, the flipped limb; the mutated byte
+    makes a non-residue x).  So the verify's accumulators and ``ok`` do not
+    depend on ``MEGA``; chip_smoke.py runs the whole outer snark both ways
+    on the card."""
+    assert [tuple(s.shape[:-1]) for _, s, _ in outer_msms] == [(len(ROWS), 36), (len(ROWS), 3)]
+    monkeypatch.setattr(MK, "MEGA", False)
+
+    def no_scan(*args, **kwargs):
+        raise AssertionError("MEGA off must not run the one-kernel scan")
+
+    monkeypatch.setattr(MK, "msm_scan", no_scan)
+    for points, scalars, want in outer_msms:
+        got = C.g1_to_affine_ints(MK.msm_batched_fused(points, scalars))
+        assert [got[r] for r in (0, 2)] == [C.g1_to_affine_ints(want)[r] for r in (0, 2)]
 
 
 @pytest.fixture(scope="module")

@@ -46,8 +46,8 @@ def jax_fr(values):
 
 @pytest.mark.parametrize("n_inputs", [0, 2, 4])
 def test_permutation_matches_jax_and_oracle(n_inputs):
-    """Sparse and raw forms of the port, the JAX package's sparse form and
-    the oracle agree at batch 3, with no inputs, some, and a full rate."""
+    """The port's permutation, the JAX package's and the oracle agree at
+    batch 3, with no inputs, some, and a full rate."""
     import jax.numpy as jnp
 
     rng = np.random.default_rng(40 + n_inputs)
@@ -57,7 +57,6 @@ def test_permutation_matches_jax_and_oracle(n_inputs):
     pstate = torch.stack([port_fr(row) for row in states])
     pins = [port_fr(col) for col in inputs]
     port = P.permutation(PPO.default_spec(), pstate, pins)
-    assert torch.equal(port, P.permutation_raw(PPO.default_spec(), pstate, pins))
     jax_out = JP.permutation(
         JPO.default_spec(), jnp.asarray(np.stack([jax_fr(row) for row in states])), [jnp.asarray(jax_fr(c)) for c in inputs]
     )
@@ -69,20 +68,15 @@ def test_permutation_matches_jax_and_oracle(n_inputs):
 
 def test_constant_tensors_match_jax():
     """The port's constant tables (built from its copies of util/poseidon and
-    util/poseidon_opt) equal the JAX package's ``_opt_tensors`` and
-    ``_spec_tensors``."""
+    util/poseidon_opt) equal the JAX package's ``_opt_tensors``."""
     jspec, pspec = JPO.default_spec(), PPO.default_spec()
     c_start, c_partial, c_end, mds, pre_sparse, sp_row, sp_col, half = JP._opt_tensors(jspec)
-    opt = P.spec_arrays(pspec, "opt")
+    opt = P.spec_arrays(pspec)
     want = {"c_start": c_start, "c_partial": c_partial, "c_end": c_end, "mds": mds, "pre_sparse": pre_sparse,
             "sp_row": sp_row, "sp_col": sp_col}
     assert sorted(opt) == sorted(want) and half == pspec.r_f // 2
     for key, value in want.items():
         np.testing.assert_array_equal(opt[key], np.asarray(value).astype(np.int64), err_msg=key)
-    rc, raw_mds, _ = JP._spec_tensors(jspec)
-    raw = P.spec_arrays(pspec, "raw")
-    np.testing.assert_array_equal(raw["rc"], np.asarray(rc).astype(np.int64))
-    np.testing.assert_array_equal(raw["mds"], np.asarray(raw_mds).astype(np.int64))
 
 
 def test_sponge_matches_jax_and_oracle_across_the_exact_rate():
