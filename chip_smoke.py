@@ -9,15 +9,17 @@ the Poseidon transcript, the k=20 outer aggregation snark (verify and decide
 of both its accumulators) and config 4's aggregation fold:
 
 1. probe: torch, CUDA, and the card's name and power limit;
-2. build: compile the nine kernels (csrc/*.cu) for sm_90a, one nvcc per
+2. build: compile the eleven kernels (csrc/*.cu) for sm_90a, one nvcc per
    source in parallel, and print ptxas's registers and spills;
 3. kernels: each kernel against its plain PyTorch version on the card, bit
    for bit, at the main path's shapes, with both times (CUDA events, median
    of 5 runs after a warm-up) and the least time the card could take
-   (bound); K4 at 32 to 256 threads per block; K8 and K9 (the two-kernel
-   small MSM) also at K4's shape (reported beside their path's numbers as
-   ``at_config1_shape``), and the 64-window MSM they make against K4 and
-   the oracle;
+   (bound); K4 also against the two-kernel MSM (K8/K9, whose composition it
+   computes) and at 1 to 8 proofs per block at batches of 8 to 1820 proofs
+   (the geometry its wrapper picks against the best); K8 and K9 also at K4's shape
+   (reported beside their path's numbers as ``at_config1_shape``); K7's
+   Miller-loop and final-exponentiation kernels at the decide's batch (1,
+   doubled to 2 in the Miller loop) and at 8;
 4. slice: 1820 proofs (4 unique ones tiled, 2 rows with a corrupted
    commitment, 1 row with a wrong instance) from the data-file fixture;
    accumulators equal the native verifier's, ``ok`` False exactly on the
@@ -28,8 +30,10 @@ of both its accumulators) and config 4's aggregation fold:
 6. decide: ``entry.decide_entry`` verifies the 1820-proof batch and gives
    its decider (``build_batch_decider``), accumulators and seeded fold
    scalars; the fold by two MSMs and one pairing check is True on them and
-   False with the slice's wrong-instance accumulator in one row; K1, K2, K5, K6 and K7 launched by it; warm
-   time, verified proofs/s (verify + decide), peak memory;
+   False with the slice's wrong-instance accumulator in one row; K1, K2,
+   K5, K6 and K7's two pairing kernels launched by it (one launch of each
+   per pairing check, no single Fq12 product); warm time, verified
+   proofs/s (verify + decide), peak memory;
    ``build_verifier(decide_dk=...)`` on 8 proofs equal to the host oracle;
 7. large MSM: ``msm_serial`` at 2^16 (window 8) and 2^20 (window 11,
    signed) points, exact against the oracle; points/s and peak memory;
@@ -44,9 +48,9 @@ of both its accumulators) and config 4's aggregation fold:
    (K8/K9): both accumulators equal the native verifier's, ``ok`` all True,
    a mutated proof byte and a flipped instance limb clear it, the two runs
    agree; warm times, and a profile of the ``MEGA``-off run; then K8 and K9
-   against their plain versions, bit for bit, on the inputs of that run's
-   first two-kernel MSM (the kernels line reports their times and bounds at
-   this shape);
+   against their plain versions, and K4 against its plain version and
+   K8/K9, bit for bit, on the inputs of that run's first two-kernel MSM (the
+   kernels line reports K8/K9's times and bounds at this shape);
 10. config 4: the port's ``aggregate_native`` folds the four Poseidon
    snarks on the host, the card decides the fold (True) and decodes its 16
    instance limbs back to it.
@@ -89,11 +93,16 @@ KERNELS = {  # name -> (source, TPU kernel replaced)
     "fq12_mul": ("snark_verifier_tpu_torch/csrc/tower.cu", "snark_verifier_tpu/ops/tower_pallas.py:97"),
     "msm_window": ("snark_verifier_tpu_torch/csrc/msm.cu", "snark_verifier_tpu/ops/msm_pallas.py:90"),
     "msm_horner": ("snark_verifier_tpu_torch/csrc/msm.cu", "snark_verifier_tpu/ops/msm_pallas.py:232"),
+    "miller_loop": ("snark_verifier_tpu_torch/csrc/tower.cu", "snark_verifier_tpu/ops/tower_pallas.py:97"),
+    "final_exp": ("snark_verifier_tpu_torch/csrc/tower.cu", "snark_verifier_tpu/ops/tower_pallas.py:97"),
 }
+PAIRING_KERNELS = ("miller_loop", "final_exp")  # K7's kernels on the pairing path
 SLICE_KERNELS = ("mont_mul", "g1_add", "g1_double", "msm_scan")
-DECIDE_KERNELS = ("mont_mul", "g1_add", "g1_add_select", "horner_combine", "fq12_mul")
-AGG_MEGA_KERNELS = ("mont_mul", "g1_add", "g1_double", "msm_scan", "fq12_mul")  # outer snark, MEGA on
-AGG_WINDOWED_KERNELS = ("mont_mul", "g1_add", "g1_double", "msm_window", "msm_horner", "fq12_mul")  # MEGA off
+DECIDE_KERNELS = ("mont_mul", "g1_add", "g1_add_select", "horner_combine", *PAIRING_KERNELS)
+AGG_MEGA_KERNELS = ("mont_mul", "g1_add", "g1_double", "msm_scan", *PAIRING_KERNELS)  # outer snark, MEGA on
+AGG_WINDOWED_KERNELS = ("mont_mul", "g1_add", "g1_double", "msm_window", "msm_horner", *PAIRING_KERNELS)  # MEGA off
+PAIRING_BATCHES = (1, 8)  # K7's pairing kernels: the decide's batch and the outer snark's
+SCAN_SWEEP_BATCHES = (8, 66, 132, 264, 400, 528, 800, 1056, 1320, 1820)  # K4's geometry sweep
 AGG_BATCH = 8  # the outer snark tiled, as tools/verify_aggregation_onchip.py
 FLIPPED_LIMB = 3  # instance limb flipped in the aggregation phase (old accumulator's lhs x, top limb)
 
@@ -108,6 +117,17 @@ INT32_MULS_PER_S = 132 * 64 * 1.98e9
 MULS_PER_MONT = 2 * (64 + 64) + 8
 FE_BYTES = 32  # one field element (or one scalar's 64 signed 4-bit digits) as the function needs it
 MONT_PER = {"add": 12, "double": 8, "fq12": 54}  # Montgomery products per operation
+# Fq products of the pairing's tower operations at the least count of a
+# known schedule (the kernels run the dense 54-product Fq12 Karatsuba for all
+# of them; every value is reduced below p, so any correct schedule gives the
+# same limbs): Fq2 product 3, squaring 2; Fq6 product 18, squaring 12
+# (Chung-Hasan SQR2); Fq12 product 54, squaring 36 (complex); squaring in
+# the cyclotomic subgroup 18 (Granger-Scott), which holds every value of the
+# hard part; the product by a Miller line ((py, 0, 0), (a, c3, 0)), py in
+# Fq, 36 (f0 py 6, f1 (a, c3, 0) 15, (f0 + f1)(py + a, c3, 0) 15); a
+# Frobenius map 15 (p: five Fq2 coefficients) or 10 (p^2: in Fq).
+TOWER = {"fq2_mul": 3, "fq2_sqr": 2, "fq6_mul": 18, "fq6_sqr": 12, "fq12_mul": 54, "fq12_sqr": 36,
+         "cyclotomic_sqr": 18, "line_mul": 36, "frob1": 15, "frob2": 10}
 # utility ops torch.profiler leaves out of its event list
 UNLISTED_OPS = {"[memory]", "[OutOfMemory]", "profiler::_record_function_enter", "profiler::_record_function_enter_new",
                 "profiler::_record_function_exit", "aten::is_leaf", "aten::output_nr", "aten::_version"}
@@ -150,6 +170,54 @@ def bound(nbytes: int, mont_products: int) -> dict:
     t_ops = mont_products * MULS_PER_MONT / INT32_MULS_PER_S * 1e3
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None}
+
+
+def timed_once(torch, fn):
+    """One call of ``fn``: its result and its milliseconds (CUDA events)."""
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def scan_mont_products(n: int, nwin: int) -> int:
+    """Montgomery products one proof's K4 MSM needs: nwin (n - 1) complete
+    adds for the window sums, then (nwin - 1) x (4 doublings + 1 add) for
+    Horner (its first step, onto the identity, needs none)."""
+    return nwin * (n - 1) * MONT_PER["add"] + (nwin - 1) * (WINDOW_DBLS * MONT_PER["double"] + MONT_PER["add"])
+
+
+def pairing_mont_products() -> tuple[int, int]:
+    """Montgomery products K7's Miller-loop kernel needs per lane of the
+    doubled batch, and its final-exponentiation kernel per batch element,
+    each tower operation priced at ``TOWER`` (the least count of a known
+    schedule, not the dense products the kernels run)."""
+    from snark_verifier_tpu_torch.ops import pairing as PAIR
+    from snark_verifier_tpu_torch.util import bn254
+
+    is_dbl = [k == "dbl" for k, _, _ in PAIR._line_constants(PAIR._g2_key(bn254.G2_GEN))]
+    steps = len(is_dbl)
+    # f starts at one: the first step's squaring and line product need nothing
+    miller = (sum(is_dbl) - is_dbl[0]) * TOWER["fq12_sqr"] + (steps - 1) * TOWER["line_mul"] + 2 * steps  # + lam px
+    x_sqr, x_mul = bn254.BN_X.bit_length() - 1, bin(bn254.BN_X).count("1") - 1  # one _pow_x
+    e = bn254.P - 2  # Fermat inversion in Fq, 4-bit windows from the top one
+    top = (e.bit_length() - 1) // 4
+    fermat = 14 + 4 * top + sum(1 for w in range(top) if (e >> (4 * w)) & 15)
+    # f^-1 = conj(f) (f conj f)^-1: the norm a^2 - v b^2, an Fq6 inverse
+    # (3 squarings + 6 products, an Fq2 inverse of 2 squarings + 2 products,
+    # 3 products) and conj(f) times it
+    inverse = 2 * TOWER["fq6_sqr"] + 3 * TOWER["fq2_sqr"] + 9 * TOWER["fq2_mul"] + 4 + fermat + 2 * TOWER["fq6_mul"]
+    final = (
+        TOWER["fq12_mul"]  # _combine
+        + inverse + 2 * TOWER["fq12_mul"]  # the easy part
+        + 5 * TOWER["frob1"] + 3 * TOWER["frob2"]  # the Frobenius maps
+        + 3 * (x_sqr * TOWER["cyclotomic_sqr"] + x_mul * TOWER["fq12_mul"])  # fu, fu2, fu3
+        + 4 * TOWER["fq12_mul"]  # y0, y4, y6
+        + 9 * TOWER["fq12_mul"] + 4 * TOWER["cyclotomic_sqr"]  # the chain
+    )
+    return miller, final
 
 
 def phase_kernels(torch, dev, rng):
@@ -226,28 +294,55 @@ def phase_kernels(torch, dev, rng):
     pts = C.G1(*(c.reshape(B, N_TERMS, 16).transpose(0, 1) for c in p))
     table = MK.build_tables(pts)
     digits = MK.signed_digits(ints_to_tensor(scal, dev).reshape(B, N_TERMS, 16))
-    got, want = MK.msm_scan(table, digits), MK.msm_scan_plain(table, digits)
+    got = MK.msm_scan(table, digits)
+    want, plain_ms = timed_once(torch, lambda: MK.msm_scan_plain(table, digits))  # ~17 s a call
+    two = MK.msm_windowed(table, digits)
     torch.cuda.synchronize()
     require(all(torch.equal(g, w) for g, w in zip(got, want)), "msm_scan: kernel != plain")
+    require(all(torch.equal(g, w) for g, w in zip(got, two)), "msm_scan: kernel != msm_windowed (K8/K9)")
     for row in range(3):
         want_aff = bn254.g1_msm(scal[row * N_TERMS:(row + 1) * N_TERMS], ps[row * N_TERMS:(row + 1) * N_TERMS])
         require(C.g1_to_affine_ints(C.G1(*(c[row:row + 1] for c in got))) == [want_aff], "msm_scan: kernel != oracle")
     ms = cuda_ms(torch, lambda: MK.msm_scan(table, digits))
-    plain_ms = cuda_ms(torch, lambda: MK.msm_scan_plain(table, digits), reps=1, warmup=False)  # ~17 s a call
-    nwin = digits.shape[-1]
-    point_ops = (nwin * N_TERMS - 1) * MONT_PER["add"] + WINDOW_DBLS * (nwin - 1) * MONT_PER["double"]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ppb, grid = MK.scan_geometry(B, sms)
+    require(grid > sms, f"msm_scan: a grid of {grid} blocks at B={B} does not cover the {sms} SMs")
     results["msm_scan"] = {"max_abs_err": max_abs_err(torch, got, want), "ms": ms, "plain_ms": plain_ms,
-                           **bound((table.numel() // 16 + B * N_TERMS + 3 * B) * FE_BYTES, B * point_ops)}
-    log(f"kernel msm_scan (B={B}, n={N_TERMS}, 64 windows): equal to plain; kernel {ms:.4f} ms "
-        f"(block {MK.BLOCK}), plain {plain_ms:.4f} ms")
-    sweep = {}
-    for block in (32, 64, 128, 256):
-        out = MK.msm_scan(table, digits, block=block)
-        torch.cuda.synchronize()
-        require(all(torch.equal(g, w) for g, w in zip(out, want)), f"msm_scan block {block}: kernel != plain")
-        sweep[block] = round(cuda_ms(torch, lambda: MK.msm_scan(table, digits, block=block)), 4)
-    log(f"kernel msm_scan threads-per-block sweep, ms: {sweep}")
+                           **bound((table.numel() // 16 + B * N_TERMS + 3 * B) * FE_BYTES,
+                                   B * scan_mont_products(N_TERMS, digits.shape[-1])),
+                           "proofs_per_block": ppb, "grid": grid}
+    log(f"kernel msm_scan (B={B}, n={N_TERMS}, 64 windows): equal to plain, to msm_windowed (K8/K9) and to the "
+        f"oracle; kernel {ms:.4f} ms ({ppb} proofs per block, {grid} blocks on {sms} SMs), plain {plain_ms:.4f} ms, "
+        f"bound {results['msm_scan']['bound_ms']:.6f} ms ({results['msm_scan']['bound_by']})")
+    results["msm_scan"]["sweep_ms"], results["msm_scan"]["geometry"] = scan_sweep(torch, table, digits, want)
     return results, (table, digits, got, scal, ps)
+
+
+def scan_sweep(torch, table, digits, want):
+    """K4's one launch parameter, proofs per block (1-8), at each batch of
+    ``SCAN_SWEEP_BATCHES`` (the first b proofs of config 1's MSM): every
+    geometry bit-equal to the checked output, its ms, and the geometry
+    ``scan_geometry`` picks against the sweep's best."""
+    from snark_verifier_tpu_torch.ops import msm_cuda as MK
+
+    sms = torch.cuda.get_device_properties(table.device).multi_processor_count
+    sweep, picks = {}, {}
+    for b in SCAN_SWEEP_BATCHES:
+        tb, db = table[:, :, :, :b].contiguous(), digits[:b].contiguous()
+        row = {}
+        for per_block in range(1, MK.MAX_PROOFS_PER_BLOCK + 1):
+            out = MK.msm_scan(tb, db, proofs_per_block=per_block)
+            torch.cuda.synchronize()
+            require(all(torch.equal(g, w[:b]) for g, w in zip(out, want)),
+                    f"msm_scan B={b}, {per_block} proofs per block: kernel != plain")
+            row[per_block] = round(cuda_ms(torch, lambda: MK.msm_scan(tb, db, proofs_per_block=per_block)), 4)
+        ppb, grid = MK.scan_geometry(b, sms)
+        best = min(row, key=row.get)
+        sweep[b] = row
+        picks[b] = {"rule": ppb, "best": best, "rule_over_best": row[ppb] / row[best]}
+        log(f"kernel msm_scan sweep at B={b}: ms by proofs per block {row}; best {best}; the rule's {ppb} "
+            f"({grid} blocks) {row[ppb] / row[best]:.3f}x the best")
+    return sweep, picks
 
 
 def phase_kernels_windowed(torch, dev, msm_case):
@@ -295,24 +390,34 @@ def phase_kernels_windowed(torch, dev, msm_case):
     # the whole two-kernel MSM (64 windows: 64 launches of each) against K4 and the oracle
     two = MK.msm_windowed(table, digits)
     torch.cuda.synchronize()
-    require(C.g1_to_affine_ints(C.G1(*(t[:8] for t in two))) == C.g1_to_affine_ints(C.G1(*(t[:8] for t in k4_out))),
-            "two-kernel MSM != K4")
+    require(all(torch.equal(t, k) for t, k in zip(two, k4_out)), "two-kernel MSM != K4")
     for row in range(3):
         want_aff = bn254.g1_msm(scal[row * N_TERMS:(row + 1) * N_TERMS], ps[row * N_TERMS:(row + 1) * N_TERMS])
         require(C.g1_to_affine_ints(C.G1(*(t[row:row + 1] for t in two))) == [want_aff], "two-kernel MSM != oracle")
     two_ms = cuda_ms(torch, lambda: MK.msm_windowed(table, digits))
     k4_ms = cuda_ms(torch, lambda: MK.msm_scan(table, digits))
-    log(f"two-kernel MSM (B={B}, n={N_TERMS}, 64 windows, 128 launches): equal to K4 and the oracle in affine form; "
+    log(f"two-kernel MSM (B={B}, n={N_TERMS}, 64 windows, 128 launches): equal to K4 limb for limb and the oracle; "
         f"{two_ms:.4f} ms against K4's {k4_ms:.4f} ms in this call ({two_ms / k4_ms:.2f}x)")
     results["msm_window"]["two_kernel_msm_ms"] = two_ms
     results["msm_window"]["k4_msm_ms"] = k4_ms
     return results
 
 
+def fq12_ints(flat, i):
+    """Element i of a flat (12, B, 16) Fq12 tensor as the oracle's tuple tree."""
+    from snark_verifier_tpu_torch.ops import field as F
+
+    v = F.FQ.decode(flat[:, i:i + 1])
+    return tuple(tuple((int(v[l * 6 + j * 2][0]), int(v[l * 6 + j * 2 + 1][0])) for j in range(3)) for l in range(2))
+
+
 def phase_kernels_decide(torch, dev, rng):
     """K5, K6 and K7 against their plain versions on the card, same inputs,
-    at the decide's shapes (and K7 also at a width that fills the card)."""
+    at the decide's shapes (and K7's single product also at a width that
+    fills the card, its pairing kernels also at the outer snark's batch)."""
+    from snark_verifier_tpu_torch import entry as E
     from snark_verifier_tpu_torch.ops import curve as C
+    from snark_verifier_tpu_torch.ops import pairing as PAIR
     from snark_verifier_tpu_torch.ops import curve_cuda as CK
     from snark_verifier_tpu_torch.ops import field as F
     from snark_verifier_tpu_torch.ops import msm_cuda as MK
@@ -362,7 +467,7 @@ def phase_kernels_decide(torch, dev, rng):
         log(f"kernel horner_combine (nwin={nwin}, window={window}): equal to plain and oracle; "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
         if window == 8:  # the decide's shape
-            ops = nwin * (window * MONT_PER["double"] + MONT_PER["add"])
+            ops = (nwin - 1) * (window * MONT_PER["double"] + MONT_PER["add"])  # the first step is onto the identity
             results["horner_combine"] = {
                 "max_abs_err": max_abs_err(torch, got, want), "ms": ms, "plain_ms": plain_ms,
                 **bound(3 * (nwin + 1) * FE_BYTES, ops),
@@ -395,6 +500,54 @@ def phase_kernels_decide(torch, dev, rng):
             results["fq12_mul"] = res
         else:
             results["fq12_mul"]["wide"] = {"batch": batch, **{k: res[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}}
+
+    # K7's Miller-loop kernel on random points, then its final-exponentiation
+    # kernel on the loop's values (at B = 8 with an identity lhs, an identity
+    # rhs and both in rows 1-3), at the decide's batch and the outer snark's
+    fx = E.fixture(E.K, "gwc")
+    q1, q2 = fx.dk.g2, bn254.g2_neg(fx.dk.s_g2)
+    miller_products, final_products = pairing_mont_products()
+    steps = len(PAIR._line_constants(PAIR._g2_key(q1)))
+    for batch in PAIRING_BATCHES:
+        pts = [pool[rng.randrange(64)] for _ in range(2 * batch)]
+        aff = C.g1_from_affine_ints(pts, dev)
+        args = (aff.x[:batch], aff.y[:batch], aff.x[batch:], aff.y[batch:], q1, q2)
+        got = PAIR.miller_loop_pair(*args)
+        want, plain_ms = timed_once(torch, lambda: PAIR.miller_loop_pair_plain(*args))
+        require(all(torch.equal(g, w) for g, w in zip(got, want)), f"miller_loop B={batch}: kernel != plain")
+        require(fq12_ints(got[0], 0) == bn254.miller_loop(pts[0], q1)
+                and fq12_ints(got[1], batch - 1) == bn254.miller_loop(pts[-1], q2), f"miller_loop B={batch}: kernel != oracle")
+        ms = cuda_ms(torch, lambda: PAIR.miller_loop_pair(*args))
+        nbytes = (2 * 2 * batch + 2 * steps * 2 * 2 + 12 * 2 * batch) * FE_BYTES + steps  # points, tape, output
+        res = {"max_abs_err": max_abs_err(torch, got, want), "ms": ms, "plain_ms": plain_ms,
+               **bound(nbytes, 2 * batch * miller_products)}
+        log(f"kernel miller_loop (B={batch}, doubled to {2 * batch}, {steps} steps): equal to plain and oracle; "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {res['bound_ms']:.6f} ms ({res['bound_by']})")
+        if batch == PAIRING_BATCHES[0]:
+            results["miller_loop"] = res
+        else:
+            results["miller_loop"][f"at_batch_{batch}"] = {k: res[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+
+        f1, f2 = got
+        lhs_inf = torch.tensor([i in (1, 3) for i in range(batch)], device=dev)
+        rhs_inf = torch.tensor([i in (2, 3) for i in range(batch)], device=dev)
+        out = PAIR.final_exponentiation(f1, f2, lhs_inf, rhs_inf)
+        want, plain_ms = timed_once(torch, lambda: PAIR.final_exponentiation_plain(f1, f2, lhs_inf, rhs_inf))
+        require(torch.equal(out, want), f"final_exp B={batch}: kernel != plain")
+        chain = bn254.final_exponentiation_chain(bn254.fq12_mul(fq12_ints(f1, 0), fq12_ints(f2, 0)))
+        require(fq12_ints(out, 0) == chain, f"final_exp B={batch}: kernel != oracle")
+        if batch > 3:
+            require(fq12_ints(out, 3) == bn254.FQ12_ONE, f"final_exp B={batch}: two identity inputs must give one")
+        ms = cuda_ms(torch, lambda: PAIR.final_exponentiation(f1, f2, lhs_inf, rhs_inf))
+        nbytes = (3 * 12 * batch + 2 * 6 * 2) * FE_BYTES + 2 * batch  # f1, f2, output, Frobenius table, masks
+        res = {"max_abs_err": max_abs_err(torch, [out], [want]), "ms": ms, "plain_ms": plain_ms,
+               **bound(nbytes, batch * final_products)}
+        log(f"kernel final_exp (B={batch}): equal to plain and oracle; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {res['bound_ms']:.6f} ms ({res['bound_by']})")
+        if batch == PAIRING_BATCHES[0]:
+            results["final_exp"] = res
+        else:
+            results["final_exp"][f"at_batch_{batch}"] = {k: res[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
     return results
 
 
@@ -404,25 +557,62 @@ def wrappers():
     from snark_verifier_tpu_torch.ops import msm_cuda as MK
     from snark_verifier_tpu_torch.ops import tower_cuda as TC
 
+    from snark_verifier_tpu_torch.ops import pairing as PAIR
+
     return {"mont_mul": FK.mont_mul, "g1_add": CK.g1_add, "g1_double": CK.g1_double, "msm_scan": MK.msm_scan,
             "g1_add_select": CK.g1_add_select, "horner_combine": MK.horner_combine, "fq12_mul": TC.fq12_mul_flat,
-            "msm_window": MK.msm_window, "msm_horner": MK.msm_horner}
+            "msm_window": MK.msm_window, "msm_horner": MK.msm_horner, "miller_loop": PAIR.miller_loop_pair,
+            "final_exp": PAIR.final_exponentiation}
 
 
 def count_launches(torch, run, required, absent=()):
     """Zero every kernel's count, run the path, read the counts; fail if a
-    kernel in ``required`` was not launched or one in ``absent`` was."""
+    kernel in ``required`` was not launched or one in ``absent`` was.  Also
+    counts the path's pairing checks and small MSMs (by wrapping
+    ``kzg_pairing_check`` and ``build_tables``, which launch nothing of their
+    own) and fails unless each pairing check made one launch of each of K7's
+    pairing kernels and no single Fq12 product, and each small MSM one K4
+    launch (or, with ``MEGA`` off, 64 of K8 and of K9)."""
+    from snark_verifier_tpu_torch.ops import msm_cuda as MK
+    from snark_verifier_tpu_torch.ops import pairing as PAIR
+
     kernels = wrappers()
     for k in kernels.values():
         k.launches = 0
-    result = run()
-    torch.cuda.synchronize()
+    calls = {"pairing_checks": 0, "small_msms": 0}
+
+    def counted(key, fn):
+        def wrapper(*a, **k):
+            calls[key] += 1
+            return fn(*a, **k)
+        return wrapper
+
+    check, tables = PAIR.kzg_pairing_check, MK.build_tables
+    PAIR.kzg_pairing_check, MK.build_tables = counted("pairing_checks", check), counted("small_msms", tables)
+    try:
+        result = run()
+        torch.cuda.synchronize()
+    finally:
+        PAIR.kzg_pairing_check, MK.build_tables = check, tables
     launches = {name: k.launches for name, k in kernels.items()}
     for name in required:
         require(launches[name] > 0, f"{name} was not launched by the main path")
     for name in absent:
         require(launches[name] == 0, f"{name} was launched where it must not be")
-    return result, launches
+    checks, msms = calls["pairing_checks"], calls["small_msms"]
+    require(launches["fq12_mul"] == 0 and all(launches[k] == checks for k in PAIRING_KERNELS)
+            and sum(launches[k] for k in PAIRING_KERNELS) <= 3 * checks,
+            f"K7 launches {[launches[k] for k in ('fq12_mul', *PAIRING_KERNELS)]} for {checks} pairing checks")
+    if launches["msm_window"] == 0:
+        require(launches["msm_scan"] == msms and launches["msm_horner"] == 0,
+                f"{launches['msm_scan']} K4 launches for {msms} small MSMs")
+    else:
+        require(launches["msm_window"] == launches["msm_horner"] == 64 * msms and launches["msm_scan"] == 0,
+                f"K8/K9/K4 launches {[launches[k] for k in ('msm_window', 'msm_horner', 'msm_scan')]} "
+                f"for {msms} small MSMs with MEGA off")
+    log(f"path: {checks} pairing checks ({launches['miller_loop']} + {launches['final_exp']} K7 launches, "
+        f"{launches['fq12_mul']} single Fq12 products), {msms} small MSMs ({launches['msm_scan']} K4 launches)")
+    return result, {**launches, **calls}
 
 
 def check_against_native(out, fx, rows, proofs, instances):
@@ -577,11 +767,26 @@ def phase_kernels_on_path(torch, table, digits):
     """K8 and K9 against their plain versions on the card, bit for bit, on
     the inputs of the outer snark's first two-kernel MSM (captured in its
     MEGA-off run): one middle window, its Horner step onto the identity (as
-    the MSM's first window runs) and onto a projective accumulator."""
+    the MSM's first window runs) and onto a projective accumulator; and K4
+    on the whole MSM against its plain version and K8/K9."""
     from snark_verifier_tpu_torch.ops import curve as C
     from snark_verifier_tpu_torch.ops import msm_cuda as MK
 
     _, _, n, batch, _ = table.shape
+    got = MK.msm_scan(table, digits)
+    want, plain_ms = timed_once(torch, lambda: MK.msm_scan_plain(table, digits))
+    two = MK.msm_windowed(table, digits)
+    torch.cuda.synchronize()
+    require(all(torch.equal(g, w) for g, w in zip(got, want)), "msm_scan (outer snark's shape): kernel != plain")
+    require(all(torch.equal(g, w) for g, w in zip(got, two)), "msm_scan (outer snark's shape): kernel != msm_windowed")
+    ms = cuda_ms(torch, lambda: MK.msm_scan(table, digits))
+    two_ms = cuda_ms(torch, lambda: MK.msm_windowed(table, digits))
+    scan = {"max_abs_err": max_abs_err(torch, got, want), "ms": ms, "plain_ms": plain_ms, "shape": {"B": batch, "n": n},
+            "two_kernel_msm_ms": two_ms, **bound((table.numel() // 16 + batch * n + 3 * batch) * FE_BYTES,
+                                                 batch * scan_mont_products(n, digits.shape[-1]))}
+    log(f"kernel msm_scan (outer snark's MSM: B={batch}, n={n}): equal to plain and to msm_windowed (K8/K9); "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {scan['bound_ms']:.6f} ms ({scan['bound_by']}); "
+        f"the two-kernel MSM {two_ms:.4f} ms ({two_ms / ms:.2f}x)")
     w = MK.NWINDOWS // 2 - 1
     dig_w, dig_next = digits[..., w].contiguous(), digits[..., w + 1].contiguous()
     contrib, want = MK.msm_window(table, dig_w), MK.msm_window_plain(table, dig_w)
@@ -608,7 +813,7 @@ def phase_kernels_on_path(torch, table, digits):
     log(f"kernel msm_horner (outer snark's MSM: B={batch}, from the identity and from a projective accumulator): "
         f"equal to plain; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"bound {results['msm_horner']['bound_ms']:.6f} ms ({results['msm_horner']['bound_by']})")
-    return results
+    return results, scan
 
 
 def phase_config4(torch, dev, card):
@@ -640,7 +845,7 @@ def phase_config4(torch, dev, card):
     def decide():
         return PAIR.kzg_pairing_check(gl, gr, fx.dk.g2, fx.dk.s_g2)
 
-    ok, launches = count_launches(torch, decide, ("mont_mul", "fq12_mul"))
+    ok, launches = count_launches(torch, decide, ("mont_mul", *PAIRING_KERNELS))
     require(ok.tolist() == [True], "config 4: the folded accumulator must decide True on the card")
     require(E.host_decide(fx, lhs, rhs) is True, "config 4: host oracle must decide the fold True")
     warm, times = warm_times(torch, decide, ())
@@ -834,7 +1039,7 @@ def phase_decide(torch, dev, card, out, wrong_row, verify_s):
     log(f"decide warm (fold of {B} accumulators + one pairing): median {warm:.4f} s of "
         f"{[round(t, 4) for t in times]}; verify + decide {B / (verify_s + warm):.1f} verified proofs/s "
         f"(verify {verify_s:.4f} s + decide {warm:.4f} s); peak memory {peak / 2**20:.1f} MiB, on {card}")
-    per_launch, least = profile_run(torch, "decide", "fq12_mul", decider, good_args, warm)
+    per_launch, least = profile_run(torch, "decide", "final_exp", decider, good_args, warm)
 
     proofs = [fx.proofs[i % len(fx.proofs)] for i in range(DECIDE_PROOFS)]
     instances = [fx.instances[i % len(fx.proofs)] for i in range(DECIDE_PROOFS)]
@@ -941,10 +1146,12 @@ def main() -> int:
     poseidon_least = phase_poseidon(torch, dev, smi)
     done("poseidon")
     agg_launches, agg_per_launch, agg_least, agg_msm = phase_aggregation(torch, dev, smi)
-    on_path = phase_kernels_on_path(torch, *agg_msm)
+    on_path, scan_on_path = phase_kernels_on_path(torch, *agg_msm)
     del agg_msm
     for name, res in on_path.items():  # the path's shape first, config 1's shape beside it
         results[name] = {**res, "at_config1_shape": {"B": B, "n": N_TERMS, **config1_windowed[name]}}
+    results["msm_scan"]["at_outer_snark_shape"] = {
+        k: scan_on_path[k] for k in ("shape", "ms", "plain_ms", "two_kernel_msm_ms", "bound_ms", "bound_by")}
     done("aggregation")
     phase_config4(torch, dev, smi)
     done("config 4")
@@ -953,12 +1160,13 @@ def main() -> int:
             "the port must not import the JAX package")
 
     # each kernel's launches, and its mean device ms per launch (torch.profiler),
-    # on the path that counts it: the slice for K1-K4, the decide for K5-K7,
-    # the outer snark with MEGA off for K8-K9
+    # on the path that counts it: the slice for K1-K4, the decide for K5-K7
+    # (K7's single product launches on no path: the pairing runs its own two
+    # kernels), the outer snark with MEGA off for K8-K9
     windowed = ("msm_window", "msm_horner")
-    launches = {**{k: decide_launches[k] for k in DECIDE_KERNELS}, **{k: slice_launches[k] for k in SLICE_KERNELS},
-                **{k: agg_launches[k] for k in windowed}}
-    path_ms = {**{k: decide_per_launch.get(k) for k in DECIDE_KERNELS},
+    launches = {**{k: decide_launches[k] for k in (*DECIDE_KERNELS, "fq12_mul")},
+                **{k: slice_launches[k] for k in SLICE_KERNELS}, **{k: agg_launches[k] for k in windowed}}
+    path_ms = {**{k: decide_per_launch.get(k) for k in (*DECIDE_KERNELS, "fq12_mul")},
                **{k: slice_per_launch.get(k) for k in SLICE_KERNELS}, **{k: agg_per_launch.get(k) for k in windowed}}
     # the per-launch floor: the least device time any one kernel launch took
     # in the path profiles; no launch, however little its work, takes less

@@ -1,20 +1,24 @@
-"""Kernel K4, the batched small MSM by point scan, with its plain version and
+"""Kernel K4, the batched small MSM in one launch, with its plain version and
 the batched MSM built on it (``msm_batched_fused``); kernels K8 and K9, the
 two-kernel form of the same MSM, with their plain versions; kernel K6, the
 Horner window combine of the large MSM, with its plain version.
 
 K4 (``csrc/msm.cu``) replaces ``snark_verifier_tpu/ops/msm_pallas.py``
-``_scan_kernel_body`` (``_scan_call``, driven by ``msm_batched_fused``): one
-accumulator per proof, signed 4-bit windows most significant first, 4
-doublings per new window, a select of T[|d|] from 9 table entries, y negated
-when d < 0, and a complete add.  What bounds it on the H100 and what the
+``_scan_kernel_body`` (``_scan_call``, driven by ``msm_batched_fused``):
+the MSM of each proof over signed 4-bit windows and a 9-entry table T[|d|]
+per point, y negated when d < 0.  The TPU kernel scans (window, point) in
+order; on the H100 K4 first computes the 64 window sums of a proof in
+parallel (one thread per window, K8's arithmetic), then runs the Horner
+step over them in the same launch (K9's arithmetic).  Its output is
+therefore ``msm_windowed``'s limb for limb, and ``msm_scan_plain`` is that
+composition of the plain K8 and K9.  ``proofs_per_block`` is its one launch
+parameter (``scan_geometry``).  What bounds it on the H100 and what the
 design does about it is in the source's header.
 
 The tables T_k = k * P (k = 0..8) are built with the same ladder as
 ``msm_pallas.py:398-405`` (doublings and adds through kernels K2/K3 on CUDA
-tensors), laid out ``(9, 3, n, B, 16)``.  ``msm_scan_plain`` runs the same
-point operations in the same order as the kernel, so the two agree limb for
-limb on the same tables.
+tensors), laid out ``(9, 3, n, B, 16)``, the one layout of K4, K8 and their
+plain versions.
 
 K8 ``msm_window`` and K9 ``msm_horner`` (``csrc/msm.cu``) replace
 ``msm_pallas.py`` ``_window_kernel_body`` (``_window_call``) and
@@ -24,10 +28,11 @@ path).  Per window, most significant first: K8 sums each proof's selected
 entries T_i[|d_i|] (y negated for d_i < 0), starting from the first point's
 selection; K9 computes acc = 16 acc + contrib with acc starting at the
 identity.  ``MEGA`` picks the form: True runs K4 (one launch per MSM), False
-K8/K9 (64 launches of each per MSM).  It starts from the environment
-variable ``SVTPU_TORCH_MSM_MEGA`` (default "1") and ``msm_batched_fused``
-reads it at every call.  ``msm_window_plain`` and ``msm_horner_plain`` run
-the same point operations in the same order as their kernels.
+K8/K9 (64 launches of each per MSM); both give the same limbs.  It starts
+from the environment variable ``SVTPU_TORCH_MSM_MEGA`` (default "1") and
+``msm_batched_fused`` reads it at every call.  ``msm_window_plain`` and
+``msm_horner_plain`` run the same point operations in the same order as
+their kernels.
 
 K6 (``csrc/msm.cu``) replaces ``curve_pallas.py`` ``_horner_w_kernel``
 (``horner_combine_pallas``): sum_w 2^(w * window) T_w over the per-window
@@ -56,7 +61,11 @@ from snark_verifier_tpu_torch.ops.field_cuda import _aligned, check_limbs, field
 WINDOW = 4
 NWINDOWS = (NLIMB * LIMB_BITS) // WINDOW  # 64 signed 4-bit windows
 NTAB = (1 << (WINDOW - 1)) + 1  # |digit| in 0..8 -> 9 table entries
-BLOCK = 128  # threads per block (a launch parameter of msm_scan)
+BLOCK = 128  # threads per block of K6, K8 and K9
+MAX_PROOFS_PER_BLOCK = 8  # the window sums of 8 proofs fill 48 KB of K4's shared memory
+# K4 blocks per SM: a block's Horner threads share its first warp, and a
+# third block on an SM slows every chain (chip_smoke.py's sweep, B = 8-1820)
+BLOCKS_PER_SM = 2
 
 # True: the one-kernel scan K4; False: the two-kernel form K8/K9.  Read by
 # msm_batched_fused at every call.
@@ -98,45 +107,46 @@ def build_tables(points: G1) -> torch.Tensor:
 
 
 def msm_scan_plain(table, digits) -> G1:
-    """Plain version of K4.  table (9, 3, n, B, 16); digits (B, n, nwin)
-    int64 in [-8, 8], least significant window first.  Returns (B, 16)
-    coordinates of each proof's sum_i d_i-recoded scalar_i * P_i."""
-    _, _, n, batch, _ = table.shape
-    nwin = digits.shape[-1]
-    acc = None
-    for w in range(nwin - 1, -1, -1):
-        if acc is not None:
-            for _ in range(WINDOW):
-                acc = g1_double_plain(acc)
-        for i in range(n):
-            d = digits[:, i, w]
-            idx = d.abs().view(1, 1, batch, 1).expand(1, 3, batch, NLIMB)
-            x, y, z = table[:, :, i].gather(0, idx).squeeze(0).unbind(0)
-            y = torch.where((d < 0).unsqueeze(-1), F.neg(y, F.FQ), y)
-            acc = G1(x, y, z) if acc is None else g1_add_plain(acc, G1(x, y, z))
-    return acc
+    """Plain version of K4: the plain K8/K9 composition (``msm_windowed``'s
+    order).  table (9, 3, n, B, 16); digits (B, n, nwin) int64 in [-8, 8],
+    least significant window first.  Returns (B, 16) coordinates of each
+    proof's sum_i d_i-recoded scalar_i * P_i."""
+    return _windowed(table, digits, msm_window_plain, msm_horner_plain)
 
 
-def msm_scan(table, digits, block: int = BLOCK) -> G1:
-    """Batched point-scan MSM.  CUDA tensors launch K4 with ``block``
-    threads per block (one thread per proof); CPU tensors take
-    ``msm_scan_plain``.  Shapes as in ``msm_scan_plain``."""
+def scan_geometry(batch: int, sm_count: int, proofs_per_block: int | None = None) -> tuple[int, int]:
+    """K4's (proofs per block, blocks) for ``batch`` proofs on a card of
+    ``sm_count`` SMs: the fewest proofs per block that keep the grid at
+    ``BLOCKS_PER_SM`` blocks per SM, at most 8.  ``proofs_per_block`` (1-8)
+    forces the first, as chip_smoke.py's sweep does."""
+    ppb = proofs_per_block
+    if ppb is None:
+        ppb = min(MAX_PROOFS_PER_BLOCK, max(1, -(-batch // (BLOCKS_PER_SM * max(sm_count, 1)))))
+    return ppb, -(-batch // ppb)
+
+
+def msm_scan(table, digits, proofs_per_block: int | None = None) -> G1:
+    """Batched small MSM.  CUDA tensors launch K4 (64 window threads per
+    block, ``scan_geometry``'s proofs per block); CPU tensors take
+    ``msm_scan_plain``.  Shapes as in ``msm_scan_plain``, nwin <= 64."""
     if table.dtype != torch.int64 or digits.dtype != torch.int64:
         raise ValueError("msm_scan: table and digits must be int64")
     if table.dim() != 5 or table.shape[:2] != (NTAB, 3) or table.shape[-1] != NLIMB:
         raise ValueError(f"msm_scan: table must be ({NTAB}, 3, n, B, {NLIMB}), got {tuple(table.shape)}")
     _, _, n, batch, _ = table.shape
-    if digits.dim() != 3 or digits.shape[:2] != (batch, n) or digits.shape[-1] < 1 or n < 1:
-        raise ValueError(f"msm_scan: digits must be ({batch}, {n}, nwin), got {tuple(digits.shape)}")
+    if digits.dim() != 3 or digits.shape[:2] != (batch, n) or not 1 <= digits.shape[-1] <= NWINDOWS or n < 1:
+        raise ValueError(f"msm_scan: digits must be ({batch}, {n}, nwin <= {NWINDOWS}), got {tuple(digits.shape)}")
+    if proofs_per_block is not None and not 1 <= proofs_per_block <= MAX_PROOFS_PER_BLOCK:
+        raise ValueError(f"msm_scan: proofs_per_block must be in 1..{MAX_PROOFS_PER_BLOCK}, got {proofs_per_block}")
     if not use_kernel(table, digits):
         return msm_scan_plain(table, digits)
     table, digits = _aligned(table), digits.contiguous()
     outs = [torch.empty(batch, NLIMB, dtype=torch.int64, device=table.device) for _ in range(3)]
-    lib = _build.library()
+    ppb, _ = scan_geometry(batch, torch.cuda.get_device_properties(table.device).multi_processor_count, proofs_per_block)
     with torch.cuda.device(table.device):
-        code = lib.svtpu_msm_scan(
+        code = _build.library().svtpu_msm_scan(
             table.data_ptr(), digits.data_ptr(), *(o.data_ptr() for o in outs),
-            batch, n, digits.shape[-1], field_arg(F.FQ), block, stream_of(table),
+            batch, n, digits.shape[-1], ppb, field_arg(F.FQ), stream_of(table),
         )
     _build.check(code, "msm_scan")
     if batch:
@@ -227,16 +237,21 @@ def msm_horner(acc: G1, contrib: G1) -> G1:
 msm_horner.launches = 0
 
 
-def msm_windowed(table, digits) -> G1:
-    """The two-kernel MSM: for each window, most significant first, K8's
-    contribution folded in by K9, from the identity.  Shapes as
-    ``msm_scan``."""
+def _windowed(table, digits, window_fn, horner_fn) -> G1:
+    """For each window, most significant first, ``window_fn``'s sum folded
+    in by ``horner_fn``, from the identity."""
     batch = table.shape[3]
     by_window = digits.permute(2, 0, 1).contiguous()  # (nwin, B, n)
     acc = C.g1_identity((batch,), table.device)
     for w in range(by_window.shape[0] - 1, -1, -1):
-        acc = msm_horner(acc, msm_window(table, by_window[w]))
+        acc = horner_fn(acc, window_fn(table, by_window[w]))
     return acc
+
+
+def msm_windowed(table, digits) -> G1:
+    """The two-kernel MSM: K8's window sums folded in by K9 (64 launches of
+    each).  Shapes as ``msm_scan``."""
+    return _windowed(table, digits, msm_window, msm_horner)
 
 
 def msm_batched_fused(points: G1, scalars_canon, nwindows: int = NWINDOWS) -> G1:

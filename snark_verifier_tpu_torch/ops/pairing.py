@@ -7,8 +7,20 @@ over Fq2 are host constants too (``_line_constants``) and the loop
 evaluates them at the batched G1 points: 2 Fq products per line and one
 Fq12 product.  Both Miller loops of the check run as one loop at doubled
 batch.  The final exponentiation is the straight Scott addition chain of
-``util/bn254.final_exponentiation_chain`` on the flat Fq12 layout.  Every
-Fq12 product is kernel K7 on CUDA tensors (``tower_cuda``).
+``util/bn254.final_exponentiation_chain`` on the flat Fq12 layout.
+
+On CUDA tensors each half is one launch of a K7 kernel (``csrc/tower.cu``,
+replacing ``snark_verifier_tpu/ops/tower_pallas.py`` ``_f12_mul_kernel``,
+which the JAX package launches once per Fq12 product): ``miller_loop_pair``
+runs all steps of both loops from the line tape of ``_line_tensors``, and
+``final_exponentiation`` runs ``_combine``, the Fq12 inverse (one Fermat
+chain in Fq), the easy part and the hard-part chain, with ``_frob_tables``
+as an argument.  A check is two launches.  ``miller_loop_pair_plain`` and
+``final_exponentiation_plain`` keep the step loop and the chain with
+``fq12_mul_flat_plain``; the wrappers take them for CPU tensors.  On CUDA
+tensors the plain versions' other Fq products (the line products, the
+Frobenius maps, the tower inverse) go through K1.  Every value stays
+reduced below p, so the kernels and the plain versions agree limb for limb.
 
 Left out, as TPU workarounds: the tape VM of the final exponentiation and
 the staged jits (they dodge XLA compile time) and the padding of small
@@ -22,11 +34,14 @@ import functools
 import numpy as np
 import torch
 
+from snark_verifier_tpu_torch import _build
+from snark_verifier_tpu_torch.config import use_kernel
 from snark_verifier_tpu_torch.ops import curve as CRV
 from snark_verifier_tpu_torch.ops import field as F
 from snark_verifier_tpu_torch.ops import tower as T
+from snark_verifier_tpu_torch.ops.field_cuda import _aligned, check_limbs, field_arg, stream_of
 from snark_verifier_tpu_torch.ops.limbs import int_to_limbs
-from snark_verifier_tpu_torch.ops.tower_cuda import fq12_mul_flat
+from snark_verifier_tpu_torch.ops.tower_cuda import fq12_mul_flat_plain
 from snark_verifier_tpu_torch.util import bn254
 
 FQ = F.FQ
@@ -86,19 +101,20 @@ def _enc(v: int) -> np.ndarray:
 def _line_tensors(q1_key, q2_key, device: torch.device):
     """The two keys' line constants side by side: per step, (2, 2, 16)
     Montgomery limbs of lam (key, Fq2 component) and of c3, and whether the
-    step doubles.  The dbl/add sequence follows ATE_NAF alone, so the two
-    tapes align step for step."""
+    step doubles (a list, and an int64 tensor for the kernel).  The dbl/add
+    sequence follows ATE_NAF alone, so the two tapes align step for step."""
     lines1, lines2 = _line_constants(q1_key), _line_constants(q2_key)
     assert [k for k, _, _ in lines1] == [k for k, _, _ in lines2]
     lam = np.array([[[_enc(l[1][0]), _enc(l[1][1])] for l in pair] for pair in zip(lines1, lines2)])
     c3 = np.array([[[_enc(l[2][0]), _enc(l[2][1])] for l in pair] for pair in zip(lines1, lines2)])
     is_dbl = [k == "dbl" for k, _, _ in lines1]
-    return is_dbl, torch.as_tensor(lam, device=device), torch.as_tensor(c3, device=device)
+    dbl = torch.as_tensor(is_dbl, dtype=torch.int64, device=device)
+    return is_dbl, torch.as_tensor(lam, device=device), torch.as_tensor(c3, device=device), dbl
 
 
 def _mul_flat(x, y):
-    """Flat Fq12 product (kernel K7 on CUDA tensors)."""
-    return fq12_mul_flat(x, y)
+    """Flat Fq12 product of the plain versions."""
+    return fq12_mul_flat_plain(x, y)
 
 
 def _conj_flat(x):
@@ -148,17 +164,18 @@ def _ones_flat(shape, device):
     return T.fq12_to_flat(T.fq12_ones(shape, device))
 
 
-def miller_loop_pair(px1, py1, px2, py2, q1, q2):
-    """Both Miller loops of the KZG check in one loop at doubled batch:
-    lanes [0, B) evaluate q1's lines at (px1, py1), lanes [B, 2B) q2's at
-    (px2, py2).  Affine Montgomery G1 coordinates (B, 16); returns the flat
-    Fq12 values (f1, f2), each (12, B, 16).
+def miller_loop_pair_plain(px1, py1, px2, py2, q1, q2):
+    """Plain version of the Miller-loop kernel: both Miller loops of the
+    KZG check in one loop at doubled batch: lanes [0, B) evaluate q1's
+    lines at (px1, py1), lanes [B, 2B) q2's at (px2, py2).  Affine
+    Montgomery G1 coordinates (B, 16); returns the flat Fq12 values (f1,
+    f2), each (12, B, 16).
 
     Line at P: l = py - lam px w + (lam x_t - y_t) w^3, embedded sparsely as
     ((py, 0, 0), (-lam px, c3, 0)), the oracle's embedding."""
     B = px1.shape[0]
     dev = px1.device
-    is_dbl, lam, c3 = _line_tensors(_g2_key(q1), _g2_key(q2), dev)
+    is_dbl, lam, c3, _ = _line_tensors(_g2_key(q1), _g2_key(q2), dev)
     px = torch.cat([px1, px2])
     py = torch.cat([py1, py2])
     neg_px = F.neg(px, FQ)
@@ -174,6 +191,34 @@ def miller_loop_pair(px1, py1, px2, py2, q1, q2):
         line = torch.stack([py, zero, zero, zero, zero, zero, lam_px[0], lam_px[1], c3_s[:, 0], c3_s[:, 1], zero, zero])
         f = _mul_flat(f, line)
     return f[:, :B], f[:, B:]
+
+
+def miller_loop_pair(px1, py1, px2, py2, q1, q2):
+    """Both Miller loops of the KZG check, shapes as
+    ``miller_loop_pair_plain``.  CUDA tensors launch the Miller-loop kernel
+    (every step, one warp per lane of the doubled batch); CPU tensors take
+    ``miller_loop_pair_plain``."""
+    check_limbs("miller_loop_pair", px1, py1, px2, py2)
+    if px1.dim() != 2 or any(t.shape != px1.shape for t in (py1, px2, py2)):
+        raise ValueError(f"miller_loop_pair: expected four (B, {F.NLIMB}) coordinates")
+    if not use_kernel(px1, py1, px2, py2):
+        return miller_loop_pair_plain(px1, py1, px2, py2, q1, q2)
+    B = px1.shape[0]
+    _, lam, c3, dbl = _line_tensors(_g2_key(q1), _g2_key(q2), px1.device)
+    px, py = _aligned(torch.cat([px1, px2])), _aligned(torch.cat([py1, py2]))
+    out = torch.empty(12, 2 * B, F.NLIMB, dtype=torch.int64, device=px.device)
+    with torch.cuda.device(px.device):
+        code = _build.library().svtpu_miller_loop(
+            px.data_ptr(), py.data_ptr(), lam.data_ptr(), c3.data_ptr(), dbl.data_ptr(), out.data_ptr(),
+            2 * B, B, dbl.shape[0], field_arg(FQ), stream_of(px),
+        )
+    _build.check(code, "miller_loop")
+    if B:
+        miller_loop_pair.launches += 1
+    return out[:, :B], out[:, B:]
+
+
+miller_loop_pair.launches = 0
 
 
 def _combine(f1, f2, lhs_inf, rhs_inf):
@@ -192,10 +237,12 @@ def _pow_x(x):
     return acc
 
 
-def final_exponentiation(f):
-    """f^((p^12 - 1) / r) on a flat Fq12 (12, *B, 16): the easy part and the
-    Scott et al. hard-part chain of ``util/bn254.final_exponentiation_chain``,
-    run straight."""
+def final_exponentiation_plain(f1, f2, lhs_inf, rhs_inf):
+    """Plain version of the final-exponentiation kernel: ``_combine`` of the
+    two Miller-loop values (12, B, 16) and the identity masks (B,), then
+    f^((p^12 - 1) / r): the easy part and the Scott et al. hard-part chain
+    of ``util/bn254.final_exponentiation_chain``, run straight."""
+    f = _combine(f1, f2, lhs_inf, rhs_inf)
     inv = T.fq12_to_flat(T.fq12_inv(T.fq12_from_flat(f)))
     # easy: f^((p^6 - 1)(p^2 + 1))
     f = _mul_flat(_conj_flat(f), inv)
@@ -227,6 +274,38 @@ def final_exponentiation(f):
     return _mul_flat(t0, t1)
 
 
+def final_exponentiation(f1, f2, lhs_inf, rhs_inf):
+    """(f1 f2)^((p^12 - 1) / r) with an identity input's value replaced by
+    one, shapes as ``final_exponentiation_plain``.  CUDA tensors launch the
+    final-exponentiation kernel (one warp per batch element); CPU tensors
+    take ``final_exponentiation_plain``."""
+    check_limbs("final_exponentiation", f1, f2)
+    if f1.dim() != 3 or f1.shape[0] != 12 or f2.shape != f1.shape:
+        raise ValueError(f"final_exponentiation: expected two (12, B, {F.NLIMB}) values, got {tuple(f1.shape)}")
+    B = f1.shape[1]
+    for m in (lhs_inf, rhs_inf):
+        if m.dtype != torch.bool or tuple(m.shape) != (B,):
+            raise ValueError(f"final_exponentiation: masks must be bool ({B},), got {m.dtype} {tuple(m.shape)}")
+    if not use_kernel(f1, f2, lhs_inf, rhs_inf):
+        return final_exponentiation_plain(f1, f2, lhs_inf, rhs_inf)
+    a, b = _aligned(f1), _aligned(f2)
+    m1, m2 = lhs_inf.to(torch.uint8).contiguous(), rhs_inf.to(torch.uint8).contiguous()
+    frob = _frob_tables(a.device)
+    out = torch.empty_like(a)
+    with torch.cuda.device(a.device):
+        code = _build.library().svtpu_final_exp(
+            a.data_ptr(), b.data_ptr(), m1.data_ptr(), m2.data_ptr(), frob.data_ptr(), out.data_ptr(),
+            B, bn254.BN_X, field_arg(FQ), stream_of(a),
+        )
+    _build.check(code, "final_exp")
+    if B:
+        final_exponentiation.launches += 1
+    return out
+
+
+final_exponentiation.launches = 0
+
+
 def kzg_pairing_check(lhs: CRV.G1, rhs: CRV.G1, g2, s_g2):
     """e(lhs, g2) * e(rhs, -s_g2) == 1 for batched projective G1 lhs/rhs of
     any batch shape; g2 and s_g2 are host G2 int tuples (the deciding key).
@@ -236,5 +315,5 @@ def kzg_pairing_check(lhs: CRV.G1, rhs: CRV.G1, g2, s_g2):
     lhs, rhs = (CRV.G1(*(c.reshape(-1, F.NLIMB) for c in p)) for p in (lhs, rhs))
     lhs_n, rhs_n = CRV.g1_normalize(lhs), CRV.g1_normalize(rhs)
     f1, f2 = miller_loop_pair(lhs_n.x, lhs_n.y, rhs_n.x, rhs_n.y, g2, bn254.g2_neg(s_g2))
-    f = _combine(f1, f2, CRV.g1_is_identity(lhs), CRV.g1_is_identity(rhs))
-    return T.fq12_is_one(T.fq12_from_flat(final_exponentiation(f))).reshape(shape)
+    f = final_exponentiation(f1, f2, CRV.g1_is_identity(lhs), CRV.g1_is_identity(rhs))
+    return T.fq12_is_one(T.fq12_from_flat(f)).reshape(shape)

@@ -1,9 +1,14 @@
-"""Kernel K7, the batched Fq12 product, and its plain version.
+"""Kernel K7's single product, the batched Fq12 product, and its plain
+version.
 
 K7 (``csrc/tower.cu``) replaces ``snark_verifier_tpu/ops/tower_pallas.py``
 ``_f12_mul_kernel`` (``fq12_mul_flat_pallas``), the product of every Miller
-loop step and every final-exponentiation step of the pairing.  What bounds
-it on the H100 and what the design does about it is in the source's header.
+loop step and every final-exponentiation step of the pairing.  On the H100
+the pairing runs those products inside two kernels of their own (the Miller
+loop and the final exponentiation, ``ops/pairing.py``), built on the same
+warp-wide product as ``fq12_mul_flat`` here, one warp per product.  What
+bounds it on the H100 and what the design does about it is in the source's
+header.
 
 Both take the flat layout ``(12, *batch, 16)`` of ``tower.fq12_to_flat``.
 ``fq12_mul_flat_plain`` runs the stacked Karatsuba of ``tower`` with the
@@ -21,7 +26,7 @@ from snark_verifier_tpu_torch import _build
 from snark_verifier_tpu_torch.config import use_kernel
 from snark_verifier_tpu_torch.ops import field as F
 from snark_verifier_tpu_torch.ops import tower as T
-from snark_verifier_tpu_torch.ops.field_cuda import BLOCK, _aligned, check_limbs, field_arg, mont_mul_plain, stream_of
+from snark_verifier_tpu_torch.ops.field_cuda import _aligned, check_limbs, field_arg, mont_mul_plain, stream_of
 
 
 def fq12_mul_flat_plain(x, y):
@@ -34,7 +39,7 @@ def fq12_mul_flat_plain(x, y):
 
 def fq12_mul_flat(x, y):
     """Flat Fq12 product (broadcasting over the batch).  CUDA tensors launch
-    K7 (one thread per product); CPU tensors take ``fq12_mul_flat_plain``."""
+    K7 (one warp per product); CPU tensors take ``fq12_mul_flat_plain``."""
     check_limbs("fq12_mul_flat", x, y)
     x, y = torch.broadcast_tensors(x, y)
     if x.dim() < 2 or x.shape[0] != 12:
@@ -46,7 +51,7 @@ def fq12_mul_flat(x, y):
     out = torch.empty_like(a)
     with torch.cuda.device(a.device):
         code = _build.library().svtpu_fq12_mul(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), n, field_arg(F.FQ), BLOCK, stream_of(a)
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), n, field_arg(F.FQ), stream_of(a)
         )
     _build.check(code, "fq12_mul")
     if n:

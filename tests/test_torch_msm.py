@@ -66,13 +66,23 @@ def small_tier(monkeypatch):
 
 
 @functools.lru_cache(maxsize=None)
+def _fused():
+    B, n = 3, 8
+    jg, scal, want = case(100 * B + n, B, n, scalar_bits=32)
+    return jg, scal, want, MP.msm_batched_fused(jg, scal, 9)
+
+
 def fused_case():
     """B = 3 proofs of n = 8 terms with 32-bit scalars, and the JAX fused
     MSM's affine output at 9 signed windows (its test hook), computed once
     per process; call it under ``small_tier``."""
-    B, n = 3, 8
-    jg, scal, want = case(100 * B + n, B, n, scalar_bits=32)
-    return jg, scal, want, JC.g1_to_affine_ints(MP.msm_batched_fused(jg, scal, 9))
+    jg, scal, want, out = _fused()
+    return jg, scal, want, JC.g1_to_affine_ints(out)
+
+
+def fused_jax_projective():
+    """The projective (x, y, z) of ``fused_case``'s JAX output."""
+    return _fused()[3]
 
 
 def test_msm_fused_matches_jax_fused(small_tier):

@@ -1,8 +1,8 @@
 """The port's two-kernel small MSM (kernels K8 ``msm_window`` and K9
 ``msm_horner`` in snark_verifier_tpu_torch/ops/msm_cuda.py, run when
-``MEGA`` is off) against the JAX package's ``_window_call`` and
-``_horner_call`` (their CPU branch), its ``msm_batched_fused`` and the
-python-int oracle, on the CPU.
+``MEGA`` is off) and the plain version of K4, their composition, against
+the JAX package's ``_window_call`` and ``_horner_call`` (their CPU branch),
+its ``msm_batched_fused`` and the python-int oracle, on the CPU.
 
 The single kernels are compared limb for limb on the same table, carried
 into the JAX package's slab layout (9 * 48, n * b_pad).  Whole MSMs are
@@ -15,13 +15,14 @@ import jax
 import numpy as np
 import pytest
 import torch
-from test_torch_msm import case, fused_case, small_tier  # noqa: F401  (small_tier is a fixture)
+from test_torch_msm import case, fused_case, fused_jax_projective, small_tier  # noqa: F401  (small_tier is a fixture)
 
 from snark_verifier_tpu.ops import msm_pallas as MP
 from snark_verifier_tpu.util import bn254
 from snark_verifier_tpu_torch.ops import curve as C
 from snark_verifier_tpu_torch.ops import msm_cuda as MK
 from snark_verifier_tpu_torch.ops.convert import g1_from_numpy, limbs_to_tensor
+from snark_verifier_tpu_torch.ops.curve_cuda import g1_add_plain
 
 B, N = 3, 3
 B_PAD = 128  # the JAX package's lane tier on the CPU
@@ -93,6 +94,46 @@ def test_horner_plain_matches_jax_horner_call(tables):
         np.testing.assert_array_equal(g.numpy(), w)
     a, c = C.g1_to_affine_ints(acc), C.g1_to_affine_ints(contrib)
     assert C.g1_to_affine_ints(got) == [bn254.g1_add(bn254.g1_mul(x, 16), y) for x, y in zip(a, c)]
+
+
+def test_scan_plain_matches_jax_window_horner_composition(small_tier):  # noqa: F811
+    """K4's plain version against the JAX package's fused MSM on the CPU,
+    which composes ``_window_call`` and ``_horner_call`` over the windows
+    (from the identity, most significant first), limb for limb: 9 signed
+    windows, B = 3 proofs of n = 8 terms (test_torch_msm.py's case), on the
+    JAX CPU path's own table T_k = T_(k-1) + P (complete adds, K2's plain
+    version)."""
+    jg, scal, want, jax_out = fused_case()
+    jax_proj = [np.asarray(c) for c in fused_jax_projective()]
+    g = g1_from_numpy(jg, "cpu")
+    p = C.G1(*(c.transpose(0, 1) for c in g))  # (n, B): point-major
+    entries = [C.g1_identity(p.batch_shape, "cpu"), p]
+    for _ in range(MK.NTAB - 2):
+        entries.append(g1_add_plain(entries[-1], p))
+    table = torch.stack([torch.stack(list(t)) for t in entries])
+    digits = MK.signed_digits(limbs_to_tensor(scal, "cpu"))[..., :9]
+    got = MK.msm_scan(table, digits)
+    for c, w in zip(got, jax_proj):
+        np.testing.assert_array_equal(c.numpy(), w.astype(np.int64))
+    assert C.g1_to_affine_ints(got) == jax_out == want
+
+
+def test_scan_validates_and_picks_its_geometry(tables):
+    """K4's wrapper refuses more than 64 windows and a proofs-per-block
+    outside 1..8; ``scan_geometry`` takes the fewest proofs per block that
+    keep 2 blocks per SM (at most 8), or the forced count."""
+    _, table, digits = tables
+    with pytest.raises(ValueError):
+        MK.msm_scan(table, torch.zeros(B, N, 65, dtype=torch.int64))
+    for per_block in (0, MK.MAX_PROOFS_PER_BLOCK + 1):
+        with pytest.raises(ValueError):
+            MK.msm_scan(table, digits.unsqueeze(-1), proofs_per_block=per_block)
+    assert MK.scan_geometry(8, 132) == (1, 8)
+    assert MK.scan_geometry(264, 132) == (1, 264)
+    assert MK.scan_geometry(400, 132) == (2, 200)
+    assert MK.scan_geometry(1820, 132) == (7, 260)
+    assert MK.scan_geometry(5000, 132) == (8, 625)
+    assert MK.scan_geometry(1820, 132, 1) == (1, 1820)
 
 
 def test_msm_fused_mega_off_matches_jax_fused(small_tier, monkeypatch):  # noqa: F811

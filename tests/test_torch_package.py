@@ -24,6 +24,7 @@ from snark_verifier_tpu_torch.ops import curve_cuda as CK
 from snark_verifier_tpu_torch.ops import field as F
 from snark_verifier_tpu_torch.ops import field_cuda as FK
 from snark_verifier_tpu_torch.ops import msm_cuda as MK
+from snark_verifier_tpu_torch.ops import pairing as PAIR
 from snark_verifier_tpu_torch.ops import tower_cuda as TC
 
 REPO = Path(__file__).resolve().parents[1]
@@ -163,6 +164,7 @@ def test_build_command_targets_the_ignored_build_dir():
     assert all((_build.CSRC_DIR / s).exists() for s in _build.KERNEL_SOURCES + _build.HEADERS)
     assert set(_build.SIGNATURES) >= {
         "svtpu_g1_add_select", "svtpu_horner_combine", "svtpu_fq12_mul", "svtpu_msm_window", "svtpu_msm_horner",
+        "svtpu_miller_loop", "svtpu_final_exp",
     }
     assert len(_build.source_hash()) == 16
 
@@ -170,7 +172,7 @@ def test_build_command_targets_the_ignored_build_dir():
 def test_wrappers_route_cpu_tensors_to_plain_and_validate():
     a = convert.limbs_to_tensor(F.FQ.encode([3, 5]), "cpu")
     wrappers = (FK.mont_mul, CK.g1_add, CK.g1_double, MK.msm_scan, CK.g1_add_select, MK.horner_combine, TC.fq12_mul_flat,
-                MK.msm_window, MK.msm_horner)
+                MK.msm_window, MK.msm_horner, PAIR.miller_loop_pair, PAIR.final_exponentiation)
     launches = [w.launches for w in wrappers]
     assert torch.equal(FK.mont_mul(a, a, F.FQ), FK.mont_mul_plain(a, a, F.FQ))
     g = C.g1_from_affine_ints([None, (1, 2)], "cpu")

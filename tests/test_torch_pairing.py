@@ -1,7 +1,10 @@
 """The port's pairing (snark_verifier_tpu_torch/ops/pairing.py) against the
 JAX package's flat Fq12 helpers of ops/pairing.py and the python-int
 oracle (util/bn254.py), both of the JAX package: the Miller loop pair, the
-final exponentiation by the Scott chain, and the KZG pairing check.
+final exponentiation by the Scott chain, and the KZG pairing check.  The
+CPU runs the plain versions of the Miller-loop and final-exponentiation
+kernels; the kernels themselves are held against them on the card by
+chip_smoke.py.
 
 The JAX package's kzg_pairing_check and its final-exponentiation stage take
 tens of seconds to compile on the CPU, so the whole pairing is held against
@@ -70,22 +73,55 @@ def test_line_constants_match_jax():
 
 
 def test_miller_loop_pair_matches_oracle():
+    """The Miller-loop kernel's plain version (the step loop) at B = 2."""
     fx = E.fixture()
     rng = np.random.default_rng(11)
     ps = [bn254.g1_mul(bn254.G1_GEN, int(rng.integers(1, 1 << 62))) for _ in range(4)]
     q1, q2 = fx.dk.g2, bn254.g2_neg(fx.dk.s_g2)
     aff = C.g1_from_affine_ints(ps, "cpu")
-    f1, f2 = P.miller_loop_pair(aff.x[:2], aff.y[:2], aff.x[2:], aff.y[2:], q1, q2)
+    f1, f2 = P.miller_loop_pair_plain(aff.x[:2], aff.y[:2], aff.x[2:], aff.y[2:], q1, q2)
     assert flat_decode(f1) == [bn254.miller_loop(p, q1) for p in ps[:2]]
     assert flat_decode(f2) == [bn254.miller_loop(p, q2) for p in ps[2:]]
 
 
 def test_final_exponentiation_matches_oracle(fq12_values):
-    """Two random values and one, in one batch."""
+    """The final-exponentiation kernel's plain version (``_combine`` and the
+    chain) on three rows: v0 * v1; v1 with an identity lhs (its value
+    replaced by one); both inputs the identity (one)."""
     one = ((1, 0), (0, 0), (0, 0)), ((0, 0), (0, 0), (0, 0))
-    got = P.final_exponentiation(flat_encode(fq12_values + [one]))
-    assert flat_decode(got) == [bn254.final_exponentiation_chain(v) for v in fq12_values] + [one]
+    v0, v1 = fq12_values
+    got = P.final_exponentiation_plain(flat_encode([v0, v0, v0]), flat_encode([v1, v1, v1]),
+                                       torch.tensor([False, True, True]), torch.tensor([False, False, True]))
+    chain = bn254.final_exponentiation_chain
+    assert flat_decode(got) == [chain(bn254.fq12_mul(v0, v1)), chain(v1), one]
     assert T.fq12_is_one(T.fq12_from_flat(got[:, 2:])).tolist() == [True]
+
+
+def test_pairing_wrappers_route_cpu_to_plain_and_validate(monkeypatch):
+    """``miller_loop_pair`` and ``final_exponentiation`` hand CPU tensors to
+    their plain versions and count no launch; they refuse bad shapes and
+    types."""
+    calls = []
+    monkeypatch.setattr(P, "miller_loop_pair_plain", lambda *a: calls.append("miller") or "m")
+    monkeypatch.setattr(P, "final_exponentiation_plain", lambda *a: calls.append("final") or "f")
+    launches = (P.miller_loop_pair.launches, P.final_exponentiation.launches)
+    xy = torch.zeros(2, 16, dtype=torch.int64)
+    f = torch.zeros(12, 2, 16, dtype=torch.int64)
+    mask = torch.zeros(2, dtype=torch.bool)
+    assert P.miller_loop_pair(xy, xy, xy, xy, None, None) == "m"
+    assert P.final_exponentiation(f, f, mask, mask) == "f"
+    assert calls == ["miller", "final"]
+    assert (P.miller_loop_pair.launches, P.final_exponentiation.launches) == launches
+    with pytest.raises(ValueError):
+        P.miller_loop_pair(xy, xy, xy[:1], xy[:1], None, None)
+    with pytest.raises(ValueError):
+        P.miller_loop_pair(xy.int(), xy.int(), xy.int(), xy.int(), None, None)
+    with pytest.raises(ValueError):
+        P.final_exponentiation(f[:6], f[:6], mask, mask)
+    with pytest.raises(ValueError):
+        P.final_exponentiation(f, f, mask.long(), mask)
+    with pytest.raises(ValueError):
+        P.final_exponentiation(f, f, mask[:1], mask[:1])
 
 
 def test_kzg_pairing_check_good_wrong_and_identity_rows():
