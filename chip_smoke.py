@@ -9,30 +9,40 @@ the Poseidon transcript, the k=20 outer aggregation snark (verify and decide
 of both its accumulators) and config 4's aggregation fold:
 
 1. probe: torch, CUDA, and the card's name and power limit;
-2. build: compile the eleven kernels (csrc/*.cu) for sm_90a, one nvcc per
+2. build: compile the kernels (csrc/*.cu) for sm_90a, one nvcc per
    source in parallel, and print ptxas's registers and spills;
 3. kernels: each kernel against its plain PyTorch version on the card, bit
    for bit, at the main path's shapes, with both times (CUDA events, median
    of 5 runs after a warm-up) and the least time the card could take
-   (bound); K4 also against the two-kernel MSM (K8/K9, whose composition it
-   computes) and at 1 to 8 proofs per block at batches of 8 to 1820 proofs
-   (the geometry its wrapper picks against the best); K8 and K9 also at K4's shape
-   (reported beside their path's numbers as ``at_config1_shape``); K7's
-   Miller-loop and final-exponentiation kernels at the decide's batch (1,
-   doubled to 2 in the Miller loop) and at 8;
+   (bound); K1 also at 32, 64 and 128 threads per block at 1, 64 and 1820
+   elements (device time per launch, queued back to back); ``mont_pow`` at
+   (1820, 16) and (1, 16), Fq and Fr, exponents 0, 1, 256, p - 2 and
+   (p + 1) / 4, with both Montgomery products (``fmul_eo``, ``fmul``), also
+   against python ints, and its device time per product at batch 1 with
+   each, beside the same chain as 329 K1 launches; K6 at the decide's shape
+   (nwin 32, window 8) and the 2^20 MSM's (nwin 24, window 11) at batch 1
+   and 2, each of its three schedules; K4 also against the two-kernel MSM
+   (K8/K9, whose composition it computes) and at 1 to 8 proofs per block at
+   batches of 8 to 1820 proofs (the geometry its wrapper picks against the
+   best); K8 and K9 also at K4's shape (reported beside their path's numbers
+   as ``at_config1_shape``); K7's Miller-loop and final-exponentiation
+   kernels at the decide's batch (1, doubled to 2 in the Miller loop) and at
+   8;
 4. slice: 1820 proofs (4 unique ones tiled, 2 rows with a corrupted
    commitment, 1 row with a wrong instance) from the data-file fixture;
    accumulators equal the native verifier's, ``ok`` False exactly on the
-   corrupted rows, K1-K4 launched by the run, and the host pairing oracle
-   decides a good and the wrong-instance accumulator; warm time, proofs/s,
-   peak memory, and a torch.profiler breakdown of one warm verify;
+   corrupted rows, K1-K4 and ``mont_pow`` launched by the run (at most 230
+   K1 launches), and the host pairing oracle decides a good and the
+   wrong-instance accumulator; warm time, proofs/s, peak memory, and a
+   torch.profiler breakdown of one warm verify;
 5. SHPLONK through the same code at 64 proofs;
 6. decide: ``entry.decide_entry`` verifies the 1820-proof batch and gives
    its decider (``build_batch_decider``), accumulators and seeded fold
    scalars; the fold by two MSMs and one pairing check is True on them and
-   False with the slice's wrong-instance accumulator in one row; K1, K2,
-   K5, K6 and K7's two pairing kernels launched by it (one launch of each
-   per pairing check, no single Fq12 product); warm time, verified
+   False with the slice's wrong-instance accumulator in one row; K1,
+   ``mont_pow``, K2, K5, K6 and K7's two pairing kernels launched by it (one
+   launch of each per pairing check, no single Fq12 product, one K6 launch
+   for both MSMs, at most 16 K1 and 2 ``mont_pow`` launches); warm time, verified
    proofs/s (verify + decide), peak memory;
    ``build_verifier(decide_dk=...)`` on 8 proofs equal to the host oracle;
 7. large MSM: ``msm_serial`` at 2^16 (window 8) and 2^20 (window 11,
@@ -54,6 +64,9 @@ of both its accumulators) and config 4's aggregation fold:
 10. config 4: the port's ``aggregate_native`` folds the four Poseidon
    snarks on the host, the card decides the fold (True) and decodes its 16
    instance limbs back to it.
+
+On every path, each ``field.pow_const``/``inv`` must be one ``mont_pow``
+launch (``count_launches``).
 
 Every failure raises, so the exit code is non-zero.  The last stdout line
 is ``{"ok": true, "device": {...}}``; before it, a JSON line with the
@@ -85,6 +98,7 @@ WINDOW_DBLS = 4  # doublings per window of K4 (4-bit windows)
 MSM_CASES = ((16, 8, False), (20, 11, True))  # large MSM: (log2 points, window, signed)
 KERNELS = {  # name -> (source, TPU kernel replaced)
     "mont_mul": ("snark_verifier_tpu_torch/csrc/field.cu", "snark_verifier_tpu/ops/field_pallas.py:270"),
+    "mont_pow": ("snark_verifier_tpu_torch/csrc/field.cu", "snark_verifier_tpu/ops/field_pallas.py:270"),
     "g1_add": ("snark_verifier_tpu_torch/csrc/curve.cu", "snark_verifier_tpu/ops/curve_pallas.py:97"),
     "g1_double": ("snark_verifier_tpu_torch/csrc/curve.cu", "snark_verifier_tpu/ops/curve_pallas.py:106"),
     "msm_scan": ("snark_verifier_tpu_torch/csrc/msm.cu", "snark_verifier_tpu/ops/msm_pallas.py:139"),
@@ -97,12 +111,16 @@ KERNELS = {  # name -> (source, TPU kernel replaced)
     "final_exp": ("snark_verifier_tpu_torch/csrc/tower.cu", "snark_verifier_tpu/ops/tower_pallas.py:97"),
 }
 PAIRING_KERNELS = ("miller_loop", "final_exp")  # K7's kernels on the pairing path
-SLICE_KERNELS = ("mont_mul", "g1_add", "g1_double", "msm_scan")
-DECIDE_KERNELS = ("mont_mul", "g1_add", "g1_add_select", "horner_combine", *PAIRING_KERNELS)
-AGG_MEGA_KERNELS = ("mont_mul", "g1_add", "g1_double", "msm_scan", *PAIRING_KERNELS)  # outer snark, MEGA on
-AGG_WINDOWED_KERNELS = ("mont_mul", "g1_add", "g1_double", "msm_window", "msm_horner", *PAIRING_KERNELS)  # MEGA off
+SLICE_KERNELS = ("mont_mul", "mont_pow", "g1_add", "g1_double", "msm_scan")
+DECIDE_KERNELS = ("mont_mul", "mont_pow", "g1_add", "g1_add_select", "horner_combine", *PAIRING_KERNELS)
+AGG_MEGA_KERNELS = ("mont_mul", "mont_pow", "g1_add", "g1_double", "msm_scan", *PAIRING_KERNELS)  # outer snark, MEGA on
+AGG_WINDOWED_KERNELS = ("mont_mul", "mont_pow", "g1_add", "g1_double", "msm_window", "msm_horner",
+                        *PAIRING_KERNELS)  # MEGA off
 PAIRING_BATCHES = (1, 8)  # K7's pairing kernels: the decide's batch and the outer snark's
 SCAN_SWEEP_BATCHES = (8, 66, 132, 264, 400, 528, 800, 1056, 1320, 1820)  # K4's geometry sweep
+K1_SWEEP_BATCHES = (1, 64, B)  # K1's block-size sweep
+HORNER_SHAPES = ((32, 8), (24, 11))  # K6: (nwin, window) of the decide's MSM and of the 2^20 MSM (signed)
+DECIDE_MAX_K1, DECIDE_MAX_POW, VERIFY_MAX_K1 = 16, 2, 230  # launch ceilings on the decide and the Keccak verify
 AGG_BATCH = 8  # the outer snark tiled, as tools/verify_aggregation_onchip.py
 FLIPPED_LIMB = 3  # instance limb flipped in the aggregation phase (old accumulator's lhs x, top limb)
 
@@ -110,7 +128,8 @@ FLIPPED_LIMB = 3  # instance limb flipped in the aggregation phase (old accumula
 # Hopper white paper): HBM3 bandwidth, and 32-bit integer multiply-adds:
 # 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock.
 HBM_BYTES_PER_S = 3.35e12
-INT32_MULS_PER_S = 132 * 64 * 1.98e9
+CLOCK_HZ = 1.98e9
+INT32_MULS_PER_S = 132 * 64 * CLOCK_HZ
 # 32-bit multiply instructions per Montgomery product (CIOS on 8 words):
 # 64 a*b and 64 m*p products, each a 32 x 32 -> 64 bit multiply (lo and hi
 # halves: 2 instructions), and 8 m = t0 * n0 (low half only).
@@ -156,6 +175,35 @@ def cuda_ms(torch, fn, reps: int = 5, warmup: bool = True) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(stop))
     return statistics.median(times)
+
+
+def device_ms(torch, fn, reps: int, sleep_ms: float = 40.0) -> float:
+    """Mean device milliseconds per call of ``fn``: after a warm-up call, the
+    ``reps`` calls are queued behind a sleep kernel, so they run back to back
+    on the card and the host's enqueue time between them is not counted
+    (CUDA events around the calls).  Raises if the host took longer to
+    enqueue them than the card slept."""
+    fn()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(sleep_ms * 1e-3 * CLOCK_HZ))
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    stop.record()
+    torch.cuda.synchronize()
+    require(enqueue_ms < sleep_ms, f"device_ms: enqueueing {reps} calls took {enqueue_ms:.1f} ms, more than the "
+            f"{sleep_ms} ms sleep in front of them")
+    return start.elapsed_time(stop) / reps
+
+
+def pow_products(exponent: int) -> int:
+    """Montgomery products of ``field.pow_const``'s chain: 14 for the table,
+    then 4 squarings and one product per window after the first."""
+    nwin = (exponent.bit_length() + 3) // 4
+    return 0 if nwin == 0 else 14 + 5 * (nwin - 1)
 
 
 def max_abs_err(torch, got, want) -> float:
@@ -225,34 +273,11 @@ def phase_kernels(torch, dev, rng):
     from snark_verifier_tpu_torch.entry import bn254  # the python-int oracle
     from snark_verifier_tpu_torch.ops import curve as C
     from snark_verifier_tpu_torch.ops import curve_cuda as CK
-    from snark_verifier_tpu_torch.ops import field as F
-    from snark_verifier_tpu_torch.ops import field_cuda as FK
     from snark_verifier_tpu_torch.ops import msm_cuda as MK
     from snark_verifier_tpu_torch.ops.convert import ints_to_tensor
 
-    results = {}
     log("kernels vs plain versions: tolerance 0 (integer limbs, every output must be equal)")
-
-    # K1 mont_mul on (1820, 16), Fq and Fr, edge values in the first 25 rows
-    errs, times = [], {}
-    for spec in (F.FQ, F.FR):
-        edge = [0, 1, 2, spec.modulus - 1, spec.modulus - 2]
-        a = [x for x in edge for _ in edge] + [rng.randrange(spec.modulus) for _ in range(B - 25)]
-        b = [y for _ in edge for y in edge] + [rng.randrange(spec.modulus) for _ in range(B - 25)]
-        ta = torch.as_tensor(spec.encode(a).astype("int64"), device=dev)
-        tb = torch.as_tensor(spec.encode(b).astype("int64"), device=dev)
-        got, want = FK.mont_mul(ta, tb, spec), FK.mont_mul_plain(ta, tb, spec)
-        torch.cuda.synchronize()
-        require(torch.equal(got, want), f"mont_mul {spec.name}: kernel != plain")
-        require(list(spec.decode(got)) == [x * y % spec.modulus for x, y in zip(a, b)],
-                f"mont_mul {spec.name}: kernel != python ints")
-        errs.append(max_abs_err(torch, [got], [want]))
-        times[spec.name] = (cuda_ms(torch, lambda: FK.mont_mul(ta, tb, spec)),
-                            cuda_ms(torch, lambda: FK.mont_mul_plain(ta, tb, spec)))
-        log(f"kernel mont_mul {spec.name} ({B},16): equal to plain; kernel {times[spec.name][0]:.4f} ms, "
-            f"plain {times[spec.name][1]:.4f} ms")
-    results["mont_mul"] = {"max_abs_err": max(errs), "ms": times["Fr"][0], "plain_ms": times["Fr"][1],
-                           **bound(3 * B * FE_BYTES, B)}
+    results = phase_kernels_field(torch, dev, rng)
 
     # K2/K3 on 1820 * 18 points from a pool of random multiples of G, with
     # the identity, P + P and P + (-P) in the first rows
@@ -316,6 +341,110 @@ def phase_kernels(torch, dev, rng):
         f"bound {results['msm_scan']['bound_ms']:.6f} ms ({results['msm_scan']['bound_by']})")
     results["msm_scan"]["sweep_ms"], results["msm_scan"]["geometry"] = scan_sweep(torch, table, digits, want)
     return results, (table, digits, got, scal, ps)
+
+
+def phase_kernels_field(torch, dev, rng):
+    """K1 ``mont_mul`` and ``mont_pow`` against their plain versions and
+    python ints, bit for bit: K1 at (1820, 16) with edge values, its block
+    sizes at 1, 64 and 1820 elements (timed, beside the wrapper's pick);
+    ``mont_pow`` at (1820, 16) and (1, 16) with the exponents 0, 1, 256,
+    p - 2 and (p + 1) / 4, with both Montgomery products, and the device time
+    per product of each at batch 1 (the chain's latency)."""
+    from snark_verifier_tpu_torch.ops import field as F
+    from snark_verifier_tpu_torch.ops import field_cuda as FK
+
+    results = {}
+    errs, times, operands = [], {}, {}
+    for spec in (F.FQ, F.FR):
+        edge = [0, 1, 2, spec.modulus - 1, spec.modulus - 2]
+        a = [x for x in edge for _ in edge] + [rng.randrange(spec.modulus) for _ in range(B - 25)]
+        b = [y for _ in edge for y in edge] + [rng.randrange(spec.modulus) for _ in range(B - 25)]
+        ta = torch.as_tensor(spec.encode(a).astype("int64"), device=dev)
+        tb = torch.as_tensor(spec.encode(b).astype("int64"), device=dev)
+        got, want = FK.mont_mul(ta, tb, spec), FK.mont_mul_plain(ta, tb, spec)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"mont_mul {spec.name}: kernel != plain")
+        require(list(spec.decode(got)) == [x * y % spec.modulus for x, y in zip(a, b)],
+                f"mont_mul {spec.name}: kernel != python ints")
+        errs.append(max_abs_err(torch, [got], [want]))
+        times[spec.name] = (cuda_ms(torch, lambda: FK.mont_mul(ta, tb, spec)),
+                            cuda_ms(torch, lambda: FK.mont_mul_plain(ta, tb, spec)))
+        operands[spec.name] = (a, ta, tb)
+        log(f"kernel mont_mul {spec.name} ({B},16): equal to plain; kernel {times[spec.name][0]:.4f} ms, "
+            f"plain {times[spec.name][1]:.4f} ms")
+    results["mont_mul"] = {"max_abs_err": max(errs), "ms": times["Fr"][0], "plain_ms": times["Fr"][1],
+                           **bound(3 * B * FE_BYTES, B)}
+
+    # K1's block size: device time per launch (queued back to back) at each
+    # batch and block; every block bit-equal to the plain version
+    _, ta, tb = operands["Fr"]
+    sweep, picks = {}, {}
+    for n in K1_SWEEP_BATCHES:
+        xa, xb = ta[:n].contiguous(), tb[:n].contiguous()
+        want = FK.mont_mul_plain(xa, xb, F.FR)
+        row = {}
+        for block in FK.K1_BLOCKS:
+            require(torch.equal(FK.mont_mul(xa, xb, F.FR, block=block), want), f"mont_mul n={n} block {block}: != plain")
+            row[block] = device_ms(torch, lambda: FK.mont_mul(xa, xb, F.FR, block=block), reps=200)
+        best = min(row, key=row.get)
+        sweep[n], picks[n] = row, {"best": best, "wrapper": FK.K1_BLOCK, "wrapper_over_best": row[FK.K1_BLOCK] / row[best]}
+        log(f"kernel mont_mul block sweep at n={n}: device ms per launch by threads per block "
+            f"{ {k: round(v, 5) for k, v in row.items()} }; best {best}; the wrapper's {FK.K1_BLOCK} "
+            f"{row[FK.K1_BLOCK] / row[best]:.3f}x the best")
+    results["mont_mul"]["block_sweep_device_ms"] = sweep
+    results["mont_mul"]["block_pick"] = picks
+
+    # mont_pow: every exponent at both widths, both products, against the
+    # plain chain and python ints
+    exps = lambda m: (0, 1, 256, m - 2, (m + 1) // 4)  # noqa: E731
+    errs, per = [], {}
+    for spec in (F.FQ, F.FR):
+        a, ta, _ = operands[spec.name]
+        for n in (B, 1):
+            x, vals = ta[-n:].contiguous(), a[-n:]  # batch 1: a random value
+            for e in exps(spec.modulus):
+                want = FK.mont_pow_plain(x, e, spec)
+                for even_odd in (True, False):
+                    got = FK.mont_pow(x, e, spec, even_odd=even_odd)
+                    torch.cuda.synchronize()
+                    require(torch.equal(got, want), f"mont_pow {spec.name} n={n} e={e} even_odd={even_odd}: != plain")
+                errs.append(max_abs_err(torch, [got], [want]))
+                require(list(spec.decode(got.reshape(-1, 16))) == [pow(v, e, spec.modulus) for v in vals],
+                        f"mont_pow {spec.name} n={n} e={e}: != python ints")
+        log(f"kernel mont_pow {spec.name}: equal to plain (fmul_eo and fmul) and python ints at ({B},16) and "
+            f"(1,16), exponents 0, 1, 256, p - 2, (p + 1) / 4")
+    _, ta, _ = operands["Fr"]
+    e = F.FR.modulus - 2
+    products = pow_products(e)
+    x1 = ta[-1:].contiguous()
+    for even_odd in (True, False):
+        per[even_odd] = {
+            "batch_1": device_ms(torch, lambda: FK.mont_pow(x1, e, F.FR, even_odd=even_odd), reps=20),
+            f"batch_{B}": device_ms(torch, lambda: FK.mont_pow(ta, e, F.FR, even_odd=even_odd), reps=20),
+        }
+    latency = {"fmul_eo": per[True]["batch_1"] / products, "fmul": per[False]["batch_1"] / products}
+    def by_k1(x):  # the same chain as one K1 launch per product: field.pow_const before mont_pow
+        return FK.mont_pow_plain(x, e, F.FR, mul=FK.mont_mul)
+
+    k1_chain = {"batch_1": device_ms(torch, lambda: by_k1(x1), reps=2, sleep_ms=80.0),
+                f"batch_{B}": device_ms(torch, lambda: by_k1(ta), reps=2, sleep_ms=80.0)}
+    k1_chain_call = cuda_ms(torch, lambda: by_k1(ta), reps=3)
+    ms = cuda_ms(torch, lambda: FK.mont_pow(ta, e, F.FR))
+    _, plain_ms = timed_once(torch, lambda: FK.mont_pow_plain(ta, e, F.FR))
+    results["mont_pow"] = {
+        "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "shape": {"n": B, "exponent": "r - 2"},
+        **bound(2 * B * FE_BYTES, products * B),
+        "critical_path_ms": products * latency["fmul_eo"], "products": products,
+        "device_ms": {"fmul_eo": per[True], "fmul": per[False]},
+        "product_latency_ms": latency,
+        "k1_chain": {"device_ms": k1_chain, "call_ms": k1_chain_call, "launches": products},
+    }
+    log(f"kernel mont_pow Fr ({B},16), e = r - 2 ({products} products): call {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {results['mont_pow']['bound_ms']:.6f} ms ({results['mont_pow']['bound_by']}); device ms per launch "
+        f"fmul_eo {per[True]}, fmul {per[False]}; per product at batch 1: fmul_eo {latency['fmul_eo'] * 1e3:.4f} us, "
+        f"fmul {latency['fmul'] * 1e3:.4f} us; the same chain as {products} K1 launches: device {k1_chain} ms, "
+        f"call {k1_chain_call:.4f} ms")
+    return results
 
 
 def scan_sweep(torch, table, digits, want):
@@ -411,10 +540,11 @@ def fq12_ints(flat, i):
     return tuple(tuple((int(v[l * 6 + j * 2][0]), int(v[l * 6 + j * 2 + 1][0])) for j in range(3)) for l in range(2))
 
 
-def phase_kernels_decide(torch, dev, rng):
+def phase_kernels_decide(torch, dev, rng, results_field):
     """K5, K6 and K7 against their plain versions on the card, same inputs,
     at the decide's shapes (and K7's single product also at a width that
-    fills the card, its pairing kernels also at the outer snark's batch)."""
+    fills the card, its pairing kernels also at the outer snark's batch).
+    ``results_field`` holds the product latency K6's critical path uses."""
     from snark_verifier_tpu_torch import entry as E
     from snark_verifier_tpu_torch.ops import curve as C
     from snark_verifier_tpu_torch.ops import pairing as PAIR
@@ -453,25 +583,42 @@ def phase_kernels_decide(torch, dev, rng):
     log(f"kernel g1_add_select (32 x 1024 pairs): equal to plain and oracle; kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms")
 
-    # K6 at nwin = 32 (window 8) and 24 (window 11), one MSM each
-    for nwin, window in ((32, 8), (24, 11)):
-        pts = [pool[rng.randrange(64)] for _ in range(nwin)]
-        tot = C.G1(*(c.reshape(1, nwin, 16) for c in CK.g1_double(C.g1_from_affine_ints(pts, dev))))
-        got, want = MK.horner_combine(tot, window), MK.horner_combine_plain(tot, window)
-        torch.cuda.synchronize()
-        require(all(torch.equal(g, w) for g, w in zip(got, want)), f"horner_combine nwin={nwin}: kernel != plain")
-        want_aff = bn254.g1_msm([2 << (window * w) for w in range(nwin)], pts)
-        require(C.g1_to_affine_ints(got) == [want_aff], f"horner_combine nwin={nwin}: kernel != oracle")
-        ms = cuda_ms(torch, lambda: MK.horner_combine(tot, window))
-        plain_ms = cuda_ms(torch, lambda: MK.horner_combine_plain(tot, window), reps=1, warmup=False)  # ~4 s
-        log(f"kernel horner_combine (nwin={nwin}, window={window}): equal to plain and oracle; "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        if window == 8:  # the decide's shape
-            ops = (nwin - 1) * (window * MONT_PER["double"] + MONT_PER["add"])  # the first step is onto the identity
+    # K6 at nwin = 32 (window 8, the decide's: batch 2, its two MSMs in one
+    # launch) and 24 (window 11, the signed 2^20 MSM's), batch 1 and 2, each
+    # schedule ("thread": the one-thread kernel before this redesign; "warp":
+    # products on lanes, fmul; "warp_eo": the wrapper's, with fmul_eo)
+    latency = results_field["mont_pow"]["product_latency_ms"]["fmul_eo"]
+    variants = {}
+    for nwin, window in HORNER_SHAPES:
+        pts = [pool[rng.randrange(64)] for _ in range(2 * nwin)]
+        tot = C.G1(*(c.reshape(2, nwin, 16) for c in CK.g1_double(C.g1_from_affine_ints(pts, dev))))
+        want, plain_ms = timed_once(torch, lambda: MK.horner_combine_plain(tot, window))  # ~4 s
+        want_aff = [bn254.g1_msm([2 << (window * w) for w in range(nwin)], pts[i * nwin:(i + 1) * nwin]) for i in range(2)]
+        require(C.g1_to_affine_ints(want) == want_aff, f"horner_combine_plain nwin={nwin}: != oracle")
+        for batch in (1, 2):
+            tb = C.G1(*(c[:batch].contiguous() for c in tot))
+            row = {}
+            for variant in MK.HORNER_VARIANTS:
+                got = MK.horner_combine(tb, window, variant)
+                torch.cuda.synchronize()
+                require(all(torch.equal(g, w[:batch]) for g, w in zip(got, want)),
+                        f"horner_combine nwin={nwin} batch {batch} {variant}: kernel != plain")
+                row[variant] = device_ms(torch, lambda: MK.horner_combine(tb, window, variant), reps=5, sleep_ms=5.0)
+            variants[f"nwin_{nwin}_batch_{batch}"] = row
+            log(f"kernel horner_combine (nwin={nwin}, window={window}, batch {batch}): every schedule equal to plain "
+                f"and the oracle; device ms per launch {row}; plain {plain_ms:.4f} ms (batch 2)")
+        if window == 8:  # the decide's shape: one launch for both MSMs
+            got = MK.horner_combine(tot, window)
+            torch.cuda.synchronize()
+            ms = cuda_ms(torch, lambda: MK.horner_combine(tot, window))
+            ops = 2 * (nwin - 1) * (window * MONT_PER["double"] + MONT_PER["add"])  # the first step is onto the identity
             results["horner_combine"] = {
                 "max_abs_err": max_abs_err(torch, got, want), "ms": ms, "plain_ms": plain_ms,
-                **bound(3 * (nwin + 1) * FE_BYTES, ops),
+                "shape": {"batch": 2, "nwin": nwin, "window": window}, **bound(2 * 3 * (nwin + 1) * FE_BYTES, ops),
+                # product levels on one warp's chain: 2 per doubling, 2 per add
+                "critical_path_ms": nwin * (2 * window + 2) * latency, "product_levels": nwin * (2 * window + 2),
             }
+    results["horner_combine"]["variants_device_ms"] = variants
 
     # K7 at B = 2 (the Miller loop's doubled batch) and 4096 (a full card)
     def rand_fq12(batch):
@@ -559,8 +706,9 @@ def wrappers():
 
     from snark_verifier_tpu_torch.ops import pairing as PAIR
 
-    return {"mont_mul": FK.mont_mul, "g1_add": CK.g1_add, "g1_double": CK.g1_double, "msm_scan": MK.msm_scan,
-            "g1_add_select": CK.g1_add_select, "horner_combine": MK.horner_combine, "fq12_mul": TC.fq12_mul_flat,
+    return {"mont_mul": FK.mont_mul, "mont_pow": FK.mont_pow, "g1_add": CK.g1_add, "g1_double": CK.g1_double,
+            "msm_scan": MK.msm_scan, "g1_add_select": CK.g1_add_select, "horner_combine": MK.horner_combine,
+            "fq12_mul": TC.fq12_mul_flat,
             "msm_window": MK.msm_window, "msm_horner": MK.msm_horner, "miller_loop": PAIR.miller_loop_pair,
             "final_exp": PAIR.final_exponentiation}
 
@@ -568,18 +716,21 @@ def wrappers():
 def count_launches(torch, run, required, absent=()):
     """Zero every kernel's count, run the path, read the counts; fail if a
     kernel in ``required`` was not launched or one in ``absent`` was.  Also
-    counts the path's pairing checks and small MSMs (by wrapping
-    ``kzg_pairing_check`` and ``build_tables``, which launch nothing of their
-    own) and fails unless each pairing check made one launch of each of K7's
-    pairing kernels and no single Fq12 product, and each small MSM one K4
-    launch (or, with ``MEGA`` off, 64 of K8 and of K9)."""
+    counts the path's pairing checks, small MSMs and fixed-exponent chains
+    (by wrapping ``kzg_pairing_check``, ``build_tables`` and
+    ``field.pow_const``, through which ``field.inv`` goes; none launches
+    anything of its own) and fails unless each pairing check made one launch
+    of each of K7's pairing kernels and no single Fq12 product, each small MSM
+    one K4 launch (or, with ``MEGA`` off, 64 of K8 and of K9), and each
+    ``pow_const``/``inv`` one ``mont_pow`` launch."""
+    from snark_verifier_tpu_torch.ops import field as F
     from snark_verifier_tpu_torch.ops import msm_cuda as MK
     from snark_verifier_tpu_torch.ops import pairing as PAIR
 
     kernels = wrappers()
     for k in kernels.values():
         k.launches = 0
-    calls = {"pairing_checks": 0, "small_msms": 0}
+    calls = {"pairing_checks": 0, "small_msms": 0, "pow_chains": 0}
 
     def counted(key, fn):
         def wrapper(*a, **k):
@@ -587,19 +738,20 @@ def count_launches(torch, run, required, absent=()):
             return fn(*a, **k)
         return wrapper
 
-    check, tables = PAIR.kzg_pairing_check, MK.build_tables
+    check, tables, pow_const = PAIR.kzg_pairing_check, MK.build_tables, F.pow_const
     PAIR.kzg_pairing_check, MK.build_tables = counted("pairing_checks", check), counted("small_msms", tables)
+    F.pow_const = counted("pow_chains", pow_const)
     try:
         result = run()
         torch.cuda.synchronize()
     finally:
-        PAIR.kzg_pairing_check, MK.build_tables = check, tables
+        PAIR.kzg_pairing_check, MK.build_tables, F.pow_const = check, tables, pow_const
     launches = {name: k.launches for name, k in kernels.items()}
     for name in required:
         require(launches[name] > 0, f"{name} was not launched by the main path")
     for name in absent:
         require(launches[name] == 0, f"{name} was launched where it must not be")
-    checks, msms = calls["pairing_checks"], calls["small_msms"]
+    checks, msms, chains = calls["pairing_checks"], calls["small_msms"], calls["pow_chains"]
     require(launches["fq12_mul"] == 0 and all(launches[k] == checks for k in PAIRING_KERNELS)
             and sum(launches[k] for k in PAIRING_KERNELS) <= 3 * checks,
             f"K7 launches {[launches[k] for k in ('fq12_mul', *PAIRING_KERNELS)]} for {checks} pairing checks")
@@ -610,8 +762,10 @@ def count_launches(torch, run, required, absent=()):
         require(launches["msm_window"] == launches["msm_horner"] == 64 * msms and launches["msm_scan"] == 0,
                 f"K8/K9/K4 launches {[launches[k] for k in ('msm_window', 'msm_horner', 'msm_scan')]} "
                 f"for {msms} small MSMs with MEGA off")
+    require(launches["mont_pow"] == chains, f"{launches['mont_pow']} mont_pow launches for {chains} pow_const/inv calls")
     log(f"path: {checks} pairing checks ({launches['miller_loop']} + {launches['final_exp']} K7 launches, "
-        f"{launches['fq12_mul']} single Fq12 products), {msms} small MSMs ({launches['msm_scan']} K4 launches)")
+        f"{launches['fq12_mul']} single Fq12 products), {msms} small MSMs ({launches['msm_scan']} K4 launches), "
+        f"{chains} pow_const/inv chains ({launches['mont_pow']} mont_pow launches), {launches['mont_mul']} K1 launches")
     return result, {**launches, **calls}
 
 
@@ -701,7 +855,7 @@ def phase_poseidon(torch, dev, card):
                                ranges=("poseidon_permutation", "poseidon_point_read"))
     finally:
         P.permutation, TT.TorchPoseidonTranscript.read_ec_point = perm, read
-    return least
+    return launches, least
 
 
 def phase_aggregation(torch, dev, card):
@@ -879,6 +1033,7 @@ def phase_slice(torch, dev, card):
     first_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev)
     log(f"slice first run: {first_s:.3f} s; launches {launches}")
+    require(launches["mont_mul"] <= VERIFY_MAX_K1, f"slice: {launches['mont_mul']} K1 launches, above {VERIFY_MAX_K1}")
 
     for key in ("lhs_x", "lhs_y", "rhs_x", "rhs_y"):
         v = out[key]
@@ -1025,6 +1180,10 @@ def phase_decide(torch, dev, card, out, wrong_row, verify_s):
     first_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev)
     require(ok.shape == () and bool(ok) is True, "decide: the good batch must decide True")
+    require(launches["horner_combine"] == 1, f"decide: {launches['horner_combine']} K6 launches, not one for both MSMs")
+    require(launches["mont_mul"] <= DECIDE_MAX_K1 and launches["mont_pow"] <= DECIDE_MAX_POW,
+            f"decide: {launches['mont_mul']} K1 and {launches['mont_pow']} mont_pow launches, above "
+            f"{DECIDE_MAX_K1} and {DECIDE_MAX_POW}")
     require(bool(decider(*wrong_args)) is False, "decide: the wrong-instance row must make it False")
     log(f"decide (B={B}): good rows True, wrong-instance row folded in False; first run {first_s:.3f} s; "
         f"launches {launches}")
@@ -1133,7 +1292,7 @@ def main() -> int:
     results, msm_case = phase_kernels(torch, dev, rng)
     config1_windowed = phase_kernels_windowed(torch, dev, msm_case)
     del msm_case
-    results.update(phase_kernels_decide(torch, dev, rng))
+    results.update(phase_kernels_decide(torch, dev, rng, results))
     done("kernels")
     slice_launches, slice_per_launch, slice_least, out, wrong_row, verify_s = phase_slice(torch, dev, smi)
     phase_shplonk(torch, dev)
@@ -1143,7 +1302,7 @@ def main() -> int:
     done("decide")
     phase_msm(torch, dev, smi, rng)
     done("large MSM")
-    poseidon_least = phase_poseidon(torch, dev, smi)
+    poseidon_launches, poseidon_least = phase_poseidon(torch, dev, smi)
     done("poseidon")
     agg_launches, agg_per_launch, agg_least, agg_msm = phase_aggregation(torch, dev, smi)
     on_path, scan_on_path = phase_kernels_on_path(torch, *agg_msm)
@@ -1160,7 +1319,7 @@ def main() -> int:
             "the port must not import the JAX package")
 
     # each kernel's launches, and its mean device ms per launch (torch.profiler),
-    # on the path that counts it: the slice for K1-K4, the decide for K5-K7
+    # on the path that counts it: the slice for K1-K4 and mont_pow, the decide for K5-K7
     # (K7's single product launches on no path: the pairing runs its own two
     # kernels), the outer snark with MEGA off for K8-K9
     windowed = ("msm_window", "msm_horner")
@@ -1179,6 +1338,11 @@ def main() -> int:
          "bound_with_floor_ms": None if floor is None else max(results[name]["bound_ms"], floor)}
         for name, (src, rep) in KERNELS.items()
     ]
+    paths = {"verify": slice_launches, "decide": decide_launches, "poseidon_verify": poseidon_launches,
+             "outer_snark_mega_off": agg_launches}
+    for row in report:
+        if row["name"] in ("mont_mul", "mont_pow"):
+            row["launches_by_path"] = {k: v[row["name"]] for k, v in paths.items()}
     print(json.dumps({"kernels": report}))
     print(smi)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}

@@ -38,17 +38,33 @@
 // K6 replaces snark_verifier_tpu/ops/curve_pallas.py _horner_w_kernel
 // (horner_combine_pallas, driven by msm._horner_combine): acc = sum_w
 // 2^(w * window) T_w over the per-window totals T_w.  The TPU kernel runs a
-// sequential window grid with the accumulator in VMEM; here one thread walks
-// the windows most significant first and keeps the accumulator in registers.
-// It starts from the identity and runs `window` doublings and one complete
-// add per window, the operations of the JAX package's CPU reference scan, so
-// the output triple matches it limb for limb.  The leading batch axis (one
-// thread per MSM) serves batched MSMs; the decide has two MSMs.
+// sequential window grid with the accumulator in VMEM.  Here one warp owns
+// one MSM (the leading batch axis: the decide's two MSMs are one launch of
+// two warps).  It starts from the identity and runs `window` doublings and
+// one complete add per window, most significant first, the operations and
+// operands of the JAX package's CPU reference scan, so the output triple
+// matches it limb for limb.
 //
-// Bound on the H100: latency.  One MSM is a serial chain of nwin * (window +
-// 1) point operations (32 * 9 at window 8) on one thread; nothing in the
-// chain can run in parallel, so its time is the chain's latency.
-//
+// Bound on the H100: latency.  One MSM is a chain of nwin * (window + 1)
+// point operations (32 * 9 at window 8) that nothing can run in parallel,
+// and it is alone on the card.  So the design shortens the chain:
+//   (a) the warp first stages the nwin totals in shared memory with
+//       coalesced loads (nwin x 3 x 32 bytes), so no device-memory load
+//       sits on the chain;
+//   (b) the independent Montgomery products of each point operation run on
+//       separate lanes, and every lane keeps the whole accumulator and runs
+//       the adds: a doubling (alg. 9) is two levels of four products,
+//       {y y, y z, z z, x y} and {t2 z3, t1 z3, t0 y3, t0 x y}, an addition
+//       (alg. 7) two levels of six; the products go through shared memory
+//       with __syncwarp between levels (the pattern of K7's warp product);
+//   (c) the product is fmul_eo (bn254.cuh: two carry chains per row), so
+//       the chain is 576 product latencies at window 8, against 8-12
+//       products per point operation on one thread before.
+// kVariant 0 keeps the one-thread kernel (device loads in the chain, fmul),
+// 1 is (a) + (b) with fmul, 2 is (a) + (b) + (c); the wrapper launches 2,
+// chip_smoke.py times all three: 2.16, 0.556 and 0.406 ms per launch at
+// nwin 32, window 8 on an H100 SXM (700 W), batch 1 or 2 alike.
+
 // K8 replaces snark_verifier_tpu/ops/msm_pallas.py _window_kernel_body
 // (_window_call) and K9 replaces _horner_kernel_body (_horner_call): the
 // JAX package's small MSM with its one-kernel scan switched off.  Per window,
@@ -139,28 +155,146 @@ msm_scan_kernel(const int64_t* __restrict__ table, const int64_t* __restrict__ d
   svtpu::store_fe(oz + 16 * b, acc.z);
 }
 
-// totals: three (batch, nwin, 16) coordinate tensors, window 0 least
-// significant; outputs three (batch, 16) tensors.
-__global__ void horner_combine_kernel(const int64_t* __restrict__ tx,
-                                      const int64_t* __restrict__ ty,
-                                      const int64_t* __restrict__ tz, int64_t* __restrict__ ox,
-                                      int64_t* __restrict__ oy, int64_t* __restrict__ oz,
-                                      int64_t batch, int nwin, int window, svtpu::Field f) {
-  const int64_t b = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (b >= batch) return;
-  svtpu::G1 acc = svtpu::g1_identity(f);
-  for (int w = nwin - 1; w >= 0; --w) {
-    for (int k = 0; k < window; ++k) acc = svtpu::g1_double(acc, f);
-    const int64_t off = (b * nwin + w) * 16;
-    svtpu::G1 t;
-    t.x = svtpu::load_fe(tx + off);
-    t.y = svtpu::load_fe(ty + off);
-    t.z = svtpu::load_fe(tz + off);
-    acc = svtpu::g1_add(acc, t, f);
+constexpr int HORNER_WARP = 32;  // one warp per MSM (variants 1, 2)
+
+template <bool kEvenOdd>
+__device__ __forceinline__ svtpu::Fe horner_mul(const svtpu::Fe& a, const svtpu::Fe& b, const svtpu::Field& f) {
+  return kEvenOdd ? svtpu::fmul_eo(a, b, f) : svtpu::fmul(a, b, f);
+}
+
+// v[lane] for lanes 0..n-1 (lanes beyond n take v[n - 1]), as selects: no
+// lane diverges.
+template <int N>
+__device__ __forceinline__ svtpu::Fe pick(int lane, const svtpu::Fe (&v)[N]) {
+  svtpu::Fe r = v[N - 1];
+#pragma unroll
+  for (int k = N - 2; k >= 0; --k) {
+#pragma unroll
+    for (int j = 0; j < svtpu::NW; ++j) r.w[j] = lane == k ? v[k].w[j] : r.w[j];
   }
-  svtpu::store_fe(ox + 16 * b, acc.x);
-  svtpu::store_fe(oy + 16 * b, acc.y);
-  svtpu::store_fe(oz + 16 * b, acc.z);
+  return r;
+}
+
+// One level of N independent products, product k on lane k; every lane
+// returns all N results (through xs, N entries of shared memory).
+template <bool kEvenOdd, int N>
+__device__ __forceinline__ void warp_level(svtpu::Fe (&r)[N], const svtpu::Fe (&x)[N], const svtpu::Fe (&y)[N],
+                                           svtpu::Fe* xs, int lane, const svtpu::Field& f) {
+  const svtpu::Fe prod = horner_mul<kEvenOdd>(pick(lane, x), pick(lane, y), f);
+  if (lane < N) xs[lane] = prod;
+  __syncwarp();
+#pragma unroll
+  for (int k = 0; k < N; ++k) r[k] = xs[k];
+  __syncwarp();
+}
+
+// RCB15 alg. 9 (svtpu::g1_double), its 8 products in two levels of 4.
+template <bool kEvenOdd>
+__device__ __forceinline__ svtpu::G1 warp_double(const svtpu::G1& p, svtpu::Fe* xs, int lane,
+                                                 const svtpu::Field& f) {
+  using svtpu::fadd;
+  using svtpu::fsub;
+  svtpu::Fe r[4];
+  warp_level<kEvenOdd, 4>(r, {p.y, p.y, p.z, p.x}, {p.y, p.z, p.z, p.y}, xs, lane, f);
+  const svtpu::Fe t0 = r[0], t1 = r[1], xy = r[3];
+  svtpu::Fe z3 = fadd(t0, t0, f);
+  z3 = fadd(z3, z3, f);
+  z3 = fadd(z3, z3, f);
+  const svtpu::Fe t2 = svtpu::mul_b3(r[2], f);
+  const svtpu::Fe y3 = fadd(t0, t2, f);
+  const svtpu::Fe t1b = fadd(t2, t2, f);
+  const svtpu::Fe t0b = fsub(t0, fadd(t1b, t2, f), f);
+  warp_level<kEvenOdd, 4>(r, {t2, t1, t0b, t0b}, {z3, z3, y3, xy}, xs, lane, f);
+  svtpu::G1 out;
+  out.x = fadd(r[3], r[3], f);
+  out.y = fadd(r[2], r[0], f);
+  out.z = r[1];
+  return out;
+}
+
+// RCB15 alg. 7 (svtpu::g1_add), its 12 products in two levels of 6.
+template <bool kEvenOdd>
+__device__ __forceinline__ svtpu::G1 warp_add(const svtpu::G1& p, const svtpu::G1& q, svtpu::Fe* xs, int lane,
+                                              const svtpu::Field& f) {
+  using svtpu::fadd;
+  using svtpu::fsub;
+  svtpu::Fe r[6];
+  warp_level<kEvenOdd, 6>(r, {p.x, p.y, p.z, fadd(p.x, p.y, f), fadd(p.y, p.z, f), fadd(p.x, p.z, f)},
+                          {q.x, q.y, q.z, fadd(q.x, q.y, f), fadd(q.y, q.z, f), fadd(q.x, q.z, f)}, xs, lane, f);
+  svtpu::Fe t0 = r[0], t1 = r[1], t2 = r[2];
+  const svtpu::Fe t3 = fsub(r[3], fadd(t0, t1, f), f);
+  const svtpu::Fe t4 = fsub(r[4], fadd(t1, t2, f), f);
+  svtpu::Fe y3 = fsub(r[5], fadd(t0, t2, f), f);
+  const svtpu::Fe x3 = fadd(t0, t0, f);
+  t0 = fadd(x3, t0, f);
+  t2 = svtpu::mul_b3(t2, f);
+  const svtpu::Fe z3 = fadd(t1, t2, f);
+  t1 = fsub(t1, t2, f);
+  y3 = svtpu::mul_b3(y3, f);
+  warp_level<kEvenOdd, 6>(r, {t3, t4, t1, y3, z3, t0}, {t1, y3, z3, t0, t4, t3}, xs, lane, f);
+  svtpu::G1 out;
+  out.x = fsub(r[0], r[1], f);
+  out.y = fadd(r[2], r[3], f);
+  out.z = fadd(r[4], r[5], f);
+  return out;
+}
+
+// totals: three (batch, nwin, 16) coordinate tensors, window 0 least
+// significant; outputs three (batch, 16) tensors.  Variant 0: one thread
+// per MSM; variants 1, 2: one warp per MSM (block), dynamic shared memory
+// nwin * 3 * 32 bytes of staged totals plus 6 exchange slots.
+template <int kVariant>
+__global__ void __launch_bounds__(HORNER_WARP) horner_combine_kernel(
+    const int64_t* __restrict__ tx, const int64_t* __restrict__ ty, const int64_t* __restrict__ tz,
+    int64_t* __restrict__ ox, int64_t* __restrict__ oy, int64_t* __restrict__ oz, int64_t batch, int nwin,
+    int window, svtpu::Field f) {
+  if constexpr (kVariant == 0) {
+    const int64_t b = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (b >= batch) return;
+    svtpu::G1 acc = svtpu::g1_identity(f);
+    for (int w = nwin - 1; w >= 0; --w) {
+      for (int k = 0; k < window; ++k) acc = svtpu::g1_double(acc, f);
+      const int64_t off = (b * nwin + w) * 16;
+      svtpu::G1 t;
+      t.x = svtpu::load_fe(tx + off);
+      t.y = svtpu::load_fe(ty + off);
+      t.z = svtpu::load_fe(tz + off);
+      acc = svtpu::g1_add(acc, t, f);
+    }
+    svtpu::store_fe(ox + 16 * b, acc.x);
+    svtpu::store_fe(oy + 16 * b, acc.y);
+    svtpu::store_fe(oz + 16 * b, acc.z);
+  } else {
+    constexpr bool kEvenOdd = kVariant == 2;
+    extern __shared__ svtpu::Fe horner_smem[];
+    svtpu::Fe* tot = horner_smem;             // (nwin, 3): the staged totals
+    svtpu::Fe* xs = horner_smem + 3 * nwin;  // the products of one level
+    const int lane = threadIdx.x;
+    const int64_t b = blockIdx.x;
+    // (a) stage: word q of the totals is word q % 8 of coordinate (q / 8) % 3
+    // of window q / 24; 8 consecutive lanes read one coordinate's 128 bytes
+    for (int q = lane; q < 24 * nwin; q += HORNER_WARP) {
+      const int v = q / 24, c = (q / 8) % 3, k = q % 8;
+      const int64_t* src = c == 0 ? tx : (c == 1 ? ty : tz);
+      const longlong2 two = reinterpret_cast<const longlong2*>(src + (b * nwin + v) * 16)[k];
+      tot[3 * v + c].w[k] = static_cast<uint32_t>(two.x) | (static_cast<uint32_t>(two.y) << 16);
+    }
+    __syncwarp();
+    svtpu::G1 acc = svtpu::g1_identity(f);
+    for (int w = nwin - 1; w >= 0; --w) {
+      for (int k = 0; k < window; ++k) acc = warp_double<kEvenOdd>(acc, xs, lane, f);
+      svtpu::G1 t;
+      t.x = tot[3 * w];
+      t.y = tot[3 * w + 1];
+      t.z = tot[3 * w + 2];
+      acc = warp_add<kEvenOdd>(acc, t, xs, lane, f);
+    }
+    if (lane == 0) {
+      svtpu::store_fe(ox + 16 * b, acc.x);
+      svtpu::store_fe(oy + 16 * b, acc.y);
+      svtpu::store_fe(oz + 16 * b, acc.z);
+    }
+  }
 }
 
 __device__ __forceinline__ svtpu::G1 load_g1(const int64_t* x, const int64_t* y,
@@ -241,16 +375,32 @@ extern "C" int svtpu_msm_scan(const void* table, const void* digits, void* ox, v
   return static_cast<int>(cudaGetLastError());
 }
 
+// variant: 0 one thread per MSM (fmul), 1 one warp per MSM (fmul), 2 one
+// warp per MSM (fmul_eo); see the note at the top.
 extern "C" int svtpu_horner_combine(const void* tx, const void* ty, const void* tz, void* ox,
                                     void* oy, void* oz, int64_t batch, int nwin, int window,
-                                    const void* field_words, int block, void* stream) {
+                                    const void* field_words, int variant, void* stream) {
   if (batch <= 0) return 0;
+  if (nwin < 1 || nwin > 256 || variant < 0 || variant > 2) return static_cast<int>(cudaErrorInvalidValue);
   const svtpu::Field f = svtpu::field_from_host(static_cast<const uint32_t*>(field_words));
-  horner_combine_kernel<<<svtpu::grid_for(batch, block), block, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int64_t*>(tx), static_cast<const int64_t*>(ty),
-      static_cast<const int64_t*>(tz), static_cast<int64_t*>(ox), static_cast<int64_t*>(oy),
-      static_cast<int64_t*>(oz), batch, nwin, window, f);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t* x = static_cast<const int64_t*>(tx);
+  const int64_t* y = static_cast<const int64_t*>(ty);
+  const int64_t* z = static_cast<const int64_t*>(tz);
+  int64_t* px = static_cast<int64_t*>(ox);
+  int64_t* py = static_cast<int64_t*>(oy);
+  int64_t* pz = static_cast<int64_t*>(oz);
+  const size_t smem = (3 * static_cast<size_t>(nwin) + 6) * sizeof(svtpu::Fe);  // at most 24.8 KB
+  if (variant == 0) {
+    horner_combine_kernel<0><<<svtpu::grid_for(batch, HORNER_WARP), HORNER_WARP, 0, s>>>(
+        x, y, z, px, py, pz, batch, nwin, window, f);
+  } else if (variant == 1) {
+    horner_combine_kernel<1><<<static_cast<unsigned>(batch), HORNER_WARP, smem, s>>>(
+        x, y, z, px, py, pz, batch, nwin, window, f);
+  } else {
+    horner_combine_kernel<2><<<static_cast<unsigned>(batch), HORNER_WARP, smem, s>>>(
+        x, y, z, px, py, pz, batch, nwin, window, f);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

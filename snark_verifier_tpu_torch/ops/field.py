@@ -6,11 +6,12 @@ Counterpart of ``snark_verifier_tpu/ops/field.py``.  Elements are
 same canonical limbs as the JAX package, bit for bit.
 
 ``mont_mul`` goes through ``field_cuda.mont_mul``: kernel K1 for CUDA
-tensors, its plain version for CPU tensors.  The other ops are plain PyTorch
-on either device.  Carries are resolved without a sequential limb loop: a
-column's carry-in is a bit of ``(A + B) ^ A ^ B``, where A and B pack each
-column's propagate-or-generate and generate flags into one int64 (the
-carry-lookahead adder done by the integer adder).
+tensors, its plain version for CPU tensors; ``pow_const`` (and ``inv``)
+through ``field_cuda.mont_pow``, the whole chain in one launch.  The other
+ops are plain PyTorch on either device.  Carries are resolved without a
+sequential limb loop: a column's carry-in is a bit of ``(A + B) ^ A ^ B``,
+where A and B pack each column's propagate-or-generate and generate flags
+into one int64 (the carry-lookahead adder done by the integer adder).
 """
 
 from __future__ import annotations
@@ -240,21 +241,13 @@ def select(cond, a, b):
     return torch.where(cond.unsqueeze(-1), a, b)
 
 
-def pow_const(a, exponent: int, spec: FieldSpec, window: int = 4):
-    """a^exponent for a python-int exponent: 4-bit fixed windows, MSB first."""
-    if exponent == 0:
-        return ones(a.shape[:-1], spec, a.device)
-    nwin = (exponent.bit_length() + window - 1) // window
-    digits = [(exponent >> (window * i)) & ((1 << window) - 1) for i in range(nwin)][::-1]
-    table = [ones(a.shape[:-1], spec, a.device), a]
-    for _ in range(2, 1 << window):
-        table.append(mont_mul(table[-1], a, spec))
-    acc = table[digits[0]]
-    for d in digits[1:]:
-        for _ in range(window):
-            acc = mont_sqr(acc, spec)
-        acc = mont_mul(acc, table[d], spec)
-    return acc
+def pow_const(a, exponent: int, spec: FieldSpec):
+    """a^exponent for a python-int exponent (0 <= exponent < 2^256): 4-bit
+    fixed windows, MSB first; one ``mont_pow`` launch on CUDA tensors, its
+    plain version on CPU tensors."""
+    from snark_verifier_tpu_torch.ops import field_cuda
+
+    return field_cuda.mont_pow(a, exponent, spec)
 
 
 def inv(a, spec: FieldSpec):

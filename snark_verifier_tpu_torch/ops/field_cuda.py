@@ -1,15 +1,20 @@
-"""Kernel K1, the batched Montgomery multiply, and its plain version.
+"""Kernel K1, the batched Montgomery multiply, its fixed-exponent chain
+``mont_pow``, and their plain versions.
 
 K1 (``csrc/field.cu``) replaces ``snark_verifier_tpu/ops/field_pallas.py``
 ``_mont_mul_kernel`` (``mont_mul_pallas``; in-kernel helpers ``tmul``,
 ``tadd``, ``tsub``).  On the TPU the verifier's Fr math was ~100 XLA ops per
 multiply that XLA fused; eager PyTorch cannot fuse them, so every
-``field.mont_mul`` on a CUDA tensor launches K1 instead.  What bounds it on
-the H100 and what the design does about it is in the source's header.
+``field.mont_mul`` on a CUDA tensor launches K1 instead.  ``mont_pow`` runs
+the whole chain of ``field.pow_const`` (Fermat inversions, square roots,
+x^n), which the JAX package runs as one ``lax.scan`` over the same kernel,
+in one launch instead of one K1 launch per product.  What bounds each on the
+H100 and what the design does about it is in the source's header.
 
 ``mont_mul_plain`` is the same function in plain PyTorch: separated operand
 scanning on int64 limbs, the arithmetic of the JAX package's
-``ops/field.mont_mul``.  The wrapper takes it only for CPU tensors.
+``ops/field.mont_mul``; ``mont_pow_plain`` is the 4-bit window chain over
+it.  The wrappers take them only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -23,7 +28,13 @@ from snark_verifier_tpu_torch import _build
 from snark_verifier_tpu_torch.config import use_kernel
 from snark_verifier_tpu_torch.ops.field import NLIMB, FieldSpec, _cond_sub_mod, _resolve
 
-BLOCK = 128
+BLOCK = 128  # threads per block of the elementwise kernels K2/K3
+# K1's threads per block: 32 was the fastest of the sweep (chip_smoke.py) at
+# 1, 64 and 1820 elements on the H100 (3.62 against 4.62 us per launch at
+# 128 and 1820 elements; within 0.3 % at 1), so one block size serves all.
+K1_BLOCK = 32
+K1_BLOCKS = (32, 64, 128)  # the block sizes chip_smoke.py sweeps for K1
+POW_WINDOW = 4  # mont_pow's window (csrc/field.cu POW_TABLE = 2^4)
 
 
 def _columns(a, b, ncols: int):
@@ -78,11 +89,11 @@ def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def launch_elementwise(name: str, ins, n_out: int, spec: FieldSpec):
+def launch_elementwise(name: str, ins, n_out: int, spec: FieldSpec, block: int = BLOCK):
     """Launch the elementwise kernel ``svtpu_<name>`` (K1-K3): broadcast the
     (..., 16) inputs, allocate ``n_out`` outputs, run one thread per element
-    on the current stream and raise on a launch error.  Returns
-    (outputs reshaped to the batch, element count)."""
+    in blocks of ``block`` on the current stream and raise on a launch error.
+    Returns (outputs reshaped to the batch, element count)."""
     ins = torch.broadcast_tensors(*ins)
     batch = ins[0].shape[:-1]
     ins = [_aligned(t) for t in ins]
@@ -92,22 +103,85 @@ def launch_elementwise(name: str, ins, n_out: int, spec: FieldSpec):
     with torch.cuda.device(ins[0].device):
         code = entry(
             *(t.data_ptr() for t in ins), *(o.data_ptr() for o in outs),
-            n, field_arg(spec), BLOCK, stream_of(ins[0]),
+            n, field_arg(spec), block, stream_of(ins[0]),
         )
     _build.check(code, name)
     return [o.reshape(*batch, NLIMB) for o in outs], n
 
 
-def mont_mul(a, b, spec: FieldSpec):
+def mont_mul(a, b, spec: FieldSpec, block: int | None = None):
     """Montgomery product of (..., 16) int64 limb tensors (broadcasting).
-    CUDA tensors launch K1; CPU tensors take ``mont_mul_plain``."""
+    CUDA tensors launch K1 in blocks of ``block`` threads (``K1_BLOCK``
+    unless chip_smoke.py's sweep asks for another); CPU tensors take
+    ``mont_mul_plain``."""
     check_limbs("mont_mul", a, b)
+    if block is not None and block not in K1_BLOCKS:
+        raise ValueError(f"mont_mul: block must be one of {K1_BLOCKS}, got {block}")
     if not use_kernel(a, b):
         return mont_mul_plain(a, b, spec)
-    (out,), n = launch_elementwise("mont_mul", (a, b), 1, spec)
+    (out,), n = launch_elementwise("mont_mul", (a, b), 1, spec, K1_BLOCK if block is None else block)
     if n:
         mont_mul.launches += 1
     return out
 
 
 mont_mul.launches = 0
+
+
+def mont_pow_plain(a, exponent: int, spec: FieldSpec, mul=mont_mul_plain):
+    """a^exponent in Montgomery form on (..., 16) int64 limbs, any device:
+    a table of a^0..a^15 (14 products), then 4-bit windows most significant
+    first, 4 squarings and one product by the window's entry each (a zero
+    digit's entry, Montgomery one, included), every product through ``mul``
+    (``mont_mul_plain``; chip_smoke.py passes ``mont_mul`` to time the chain
+    as K1 launches); the JAX package's ``ops/field.pow_const``.  exponent 0
+    gives one."""
+    if exponent == 0:
+        return spec.consts(a.device)["one"].expand_as(a)
+    nwin = (exponent.bit_length() + POW_WINDOW - 1) // POW_WINDOW
+    mask = (1 << POW_WINDOW) - 1
+    digits = [(exponent >> (POW_WINDOW * i)) & mask for i in range(nwin)][::-1]
+    table = [spec.consts(a.device)["one"].expand_as(a), a]
+    for _ in range(2, 1 << POW_WINDOW):
+        table.append(mul(table[-1], a, spec))
+    acc = table[digits[0]]
+    for d in digits[1:]:
+        for _ in range(POW_WINDOW):
+            acc = mul(acc, acc, spec)
+        acc = mul(acc, table[d], spec)
+    return acc
+
+
+def exponent_arg(exponent: int):
+    """The exponent as 8 little-endian u32 words (a ctypes array) and its bit
+    length; raises unless 0 <= exponent < 2^256."""
+    if not 0 <= exponent < 1 << 256:
+        raise ValueError(f"mont_pow: exponent must be in [0, 2^256), got {exponent}")
+    words = [(exponent >> (32 * i)) & 0xFFFFFFFF for i in range(8)]
+    return (ctypes.c_uint32 * 8)(*words), exponent.bit_length()
+
+
+def mont_pow(a, exponent: int, spec: FieldSpec, even_odd: bool = True):
+    """a^exponent for a python-int exponent on (..., 16) int64 limbs.  CUDA
+    tensors make one launch of ``mont_pow`` (the whole chain, one thread per
+    element; ``even_odd`` picks its Montgomery product, ``fmul_eo`` or, for
+    chip_smoke.py's comparison, ``fmul``); CPU tensors take
+    ``mont_pow_plain``.  Same limbs either way."""
+    check_limbs("mont_pow", a)
+    exponent = int(exponent)
+    words, bits = exponent_arg(exponent)
+    if not use_kernel(a):
+        return mont_pow_plain(a, exponent, spec)
+    a = _aligned(a)
+    out = torch.empty_like(a)
+    n = a.numel() // NLIMB
+    with torch.cuda.device(a.device):
+        code = _build.library().svtpu_mont_pow(
+            a.data_ptr(), out.data_ptr(), n, field_arg(spec), words, bits, int(even_odd), stream_of(a))
+    _build.check(code, "mont_pow")
+    if n:
+        mont_pow.launches += 1
+    return out
+
+
+mont_pow.launches = 0

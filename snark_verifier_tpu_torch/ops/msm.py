@@ -5,7 +5,9 @@ Counterpart of ``snark_verifier_tpu/ops/msm.py``: ``msm_batched``,
 ``_msm_batched_xla``, ``scalar_mul`` and ``_digits`` (small MSM), and
 ``msm_serial`` with ``_window_digits``, ``_signed_window_digits``,
 ``_bucket_totals``, ``_g1_suffix_scan`` and ``_horner_combine`` (large MSM,
-the JAX package's CPU reference layout).  The TPU layout of the large MSM
+the JAX package's CPU reference layout; ``msm_serial_many`` runs several
+MSMs over one scalar set with one Horner combine, as the batch decide's
+two).  The TPU layout of the large MSM
 (``_bucket_runs_t``: transposed bit-reversed slabs, lane tiers) and
 ``msm_serial_chunked``, which processes the windows in chunks, are not
 ported.
@@ -112,9 +114,25 @@ def msm_serial(points: G1, scalars_canon, window: int = 8, signed: bool = False)
     canonical.  Window-parallel Pippenger (the JAX package's ``msm_serial``):
     all ceil(256 / window) windows run as one leading axis, the bucket sums
     come from a pairwise tree over each window's sorted digit runs
-    (``_bucket_totals``), then the Horner combine across windows (kernel
+    (``window_totals``), then the Horner combine across windows (kernel
     K6).  Signed windows halve the buckets; the digit's sign negates the
     point.  Working set ~ (nwin, n) points."""
+    return _horner_combine(window_totals(points, scalars_canon, window, signed), window)
+
+
+def msm_serial_many(point_sets, scalars_canon, window: int = 8, signed: bool = False) -> list:
+    """``msm_serial`` of each point set (each (n,)) with the same scalars:
+    each set's window totals, then ONE Horner combine (one K6 launch) over
+    the stacked (len(point_sets), nwin) totals.  Each result equals
+    ``msm_serial``'s limb for limb."""
+    totals = [window_totals(p, scalars_canon, window, signed) for p in point_sets]
+    out = horner_combine(G1(*(torch.stack(c) for c in zip(*totals))), window)
+    return [G1(*(c[i] for c in out)) for i in range(len(point_sets))]
+
+
+def window_totals(points: G1, scalars_canon, window: int = 8, signed: bool = False) -> G1:
+    """The per-window bucket totals (nwin,) of ``msm_serial``: digits, the
+    points padded to a power of two with identities, ``_bucket_totals``."""
     n_orig = points.x.shape[0]
     dev = points.x.device
     nwin = (NLIMB * LIMB_BITS + window - 1) // window
@@ -132,7 +150,7 @@ def msm_serial(points: G1, scalars_canon, window: int = 8, signed: bool = False)
         dig[:, :n_orig] = _window_digits(scalars_canon, window, nwin).T
     pad = C.g1_identity((n - n_orig,), dev)
     pts_pad = G1(*(torch.cat([c, e]) for c, e in zip(points, pad)))
-    return _horner_combine(_bucket_totals(pts_pad, dig, nbuckets, neg), window)
+    return _bucket_totals(pts_pad, dig, nbuckets, neg)
 
 
 def _check_flush_invariant(seg_e, valid) -> None:

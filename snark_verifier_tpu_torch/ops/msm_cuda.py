@@ -36,7 +36,8 @@ their kernels.
 
 K6 (``csrc/msm.cu``) replaces ``curve_pallas.py`` ``_horner_w_kernel``
 (``horner_combine_pallas``): sum_w 2^(w * window) T_w over the per-window
-bucket totals of ``msm.msm_serial``, one accumulator per MSM.
+bucket totals of ``msm.msm_serial``, one accumulator per MSM, one warp per
+MSM (the decide's two MSMs share one launch, ``msm.msm_serial_many``).
 ``horner_combine_plain`` is the JAX package's CPU reference scan
 (``msm._horner_combine``): from the identity, ``window`` doublings and one
 add per window, most significant first; the kernel runs the same operations.
@@ -61,7 +62,7 @@ from snark_verifier_tpu_torch.ops.field_cuda import _aligned, check_limbs, field
 WINDOW = 4
 NWINDOWS = (NLIMB * LIMB_BITS) // WINDOW  # 64 signed 4-bit windows
 NTAB = (1 << (WINDOW - 1)) + 1  # |digit| in 0..8 -> 9 table entries
-BLOCK = 128  # threads per block of K6, K8 and K9
+BLOCK = 128  # threads per block of K8 and K9
 MAX_PROOFS_PER_BLOCK = 8  # the window sums of 8 proofs fill 48 KB of K4's shared memory
 # K4 blocks per SM: a block's Horner threads share its first warp, and a
 # third block on an SM slows every chain (chip_smoke.py's sweep, B = 8-1820)
@@ -284,15 +285,22 @@ def horner_combine_plain(totals: G1, window: int) -> G1:
     return acc
 
 
-def horner_combine(totals: G1, window: int) -> G1:
-    """Horner window combine of a batch of MSMs.  CUDA tensors launch K6
-    (one thread per MSM); CPU tensors take ``horner_combine_plain``.
-    Shapes as in ``horner_combine_plain``."""
+HORNER_VARIANTS = {"thread": 0, "warp": 1, "warp_eo": 2}  # K6's schedules (csrc/msm.cu)
+
+
+def horner_combine(totals: G1, window: int, variant: str = "warp_eo") -> G1:
+    """Horner window combine of a batch of MSMs.  CUDA tensors launch K6,
+    one warp per MSM (``variant`` "warp_eo"; "warp" runs it with the fmul
+    product and "thread" is the one-thread kernel, both kept for
+    chip_smoke.py's comparison); CPU tensors take ``horner_combine_plain``.
+    Shapes as in ``horner_combine_plain``; nwin at most 256."""
     check_limbs("horner_combine", *totals)
     if totals.x.dim() != 3 or any(c.shape != totals.x.shape for c in totals):
         raise ValueError(f"horner_combine: totals must be three (B, nwin, {NLIMB}) tensors")
     if not 1 <= window <= 32:
         raise ValueError(f"horner_combine: window must be in 1..32, got {window}")
+    if variant not in HORNER_VARIANTS:
+        raise ValueError(f"horner_combine: variant must be one of {sorted(HORNER_VARIANTS)}, got {variant!r}")
     if not use_kernel(*totals):
         return horner_combine_plain(totals, window)
     batch, nwin, _ = totals.x.shape
@@ -301,7 +309,7 @@ def horner_combine(totals: G1, window: int) -> G1:
     with torch.cuda.device(ins[0].device):
         code = _build.library().svtpu_horner_combine(
             *(t.data_ptr() for t in ins), *(o.data_ptr() for o in outs),
-            batch, nwin, window, field_arg(F.FQ), BLOCK, stream_of(ins[0]),
+            batch, nwin, window, field_arg(F.FQ), HORNER_VARIANTS[variant], stream_of(ins[0]),
         )
     _build.check(code, "horner_combine")
     if batch and nwin:

@@ -126,15 +126,15 @@ def build_batch_decider(dk, device="cuda"):
     0-dim bool tensor: the batch decide of the JAX package's
     ``build_batch_decider``.  The B accumulators (canonical affine
     coordinates from ``build_verifier``) fold by a random linear
-    combination, two B-term MSMs with ``fold_scalars`` (B, 16) canonical Fr,
-    then ONE pairing check decides them all.  All inputs on ``device``."""
+    combination, two B-term MSMs with ``fold_scalars`` (B, 16) canonical Fr
+    (their Horner combines in one K6 launch), then ONE pairing check decides
+    them all.  All inputs on ``device``."""
     device = torch.device(device)
 
     def decide_fn(lhs_x, lhs_y, rhs_x, rhs_y, fold_scalars):
         if not all(on_device(t, device) for t in (lhs_x, lhs_y, rhs_x, rhs_y, fold_scalars)):
             raise ValueError(f"inputs must be on {device}")
-        lhs = MSM.msm_serial(to_g1(lhs_x, lhs_y), fold_scalars)
-        rhs = MSM.msm_serial(to_g1(rhs_x, rhs_y), fold_scalars)
+        lhs, rhs = MSM.msm_serial_many([to_g1(lhs_x, lhs_y), to_g1(rhs_x, rhs_y)], fold_scalars)
         return PAIR.kzg_pairing_check(lhs, rhs, dk.g2, dk.s_g2)
 
     return decide_fn

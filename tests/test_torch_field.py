@@ -121,6 +121,109 @@ def test_pow_inv_match_jax(specs):
     assert_same(F.inv(zero_t, spec), JF.inv(zero_j, jspec))
 
 
+POW_EXPONENTS = {"0": lambda m: 0, "1": lambda m: 1, "256": lambda m: 256, "p-2": lambda m: m - 2,
+                 "(p+1)/4": lambda m: (m + 1) // 4}
+
+
+@pytest.mark.parametrize("name", list(POW_EXPONENTS))
+@pytest.mark.parametrize("specs", SPECS, ids=IDS)
+def test_pow_const_and_inv_match_jax_and_ints(specs, name):
+    """field.pow_const and field.inv on the CPU route (mont_pow_plain, the
+    plain version of the mont_pow kernel) against the JAX package's
+    pow_const/inv and python ints: 0, 1, p - 1 and random values under
+    leading batch dims (2, 4), and an expanded (non-contiguous) input."""
+    spec, jspec = specs
+    e = POW_EXPONENTS[name](spec.modulus)
+    vals = [0, 1, spec.modulus - 1] + rand_ints(11, spec.modulus, 5)
+    ja, ta = both(spec, vals)
+    ja, ta = ja.reshape(2, 4, NLIMB), ta.reshape(2, 4, NLIMB)
+    got = F.pow_const(ta, e, spec)
+    assert_same(got, JF.pow_const(ja, e, jspec))
+    assert list(spec.decode(got).reshape(-1)) == [pow(v, e, spec.modulus) for v in vals]
+    wide = ta[1, 3].expand(3, NLIMB)  # stride 0: not contiguous
+    assert not wide.is_contiguous()
+    assert torch.equal(F.pow_const(wide, e, spec), got[1, 3].expand(3, NLIMB))
+    if name == "p-2":
+        inv = F.inv(ta, spec)
+        assert_same(inv, JF.inv(ja, jspec))
+        assert list(spec.decode(inv).reshape(-1)) == [pow(v, spec.modulus - 2, spec.modulus) for v in vals]
+    assert FK.mont_pow.launches == 0
+
+
+def test_mont_pow_validates_its_exponent():
+    a = limbs_to_tensor(F.FR.encode([3]), "cpu")
+    for bad in (-1, 1 << 256):
+        with pytest.raises(ValueError):
+            FK.mont_pow(a, bad, F.FR)
+    with pytest.raises(ValueError):
+        FK.mont_pow(a[..., :8], 3, F.FR)
+    assert torch.equal(FK.mont_pow(a, (1 << 256) - 1, F.FR), FK.mont_pow_plain(a, (1 << 256) - 1, F.FR))
+
+
+def _fmul_eo_words(a, b, p, n0):
+    """The schedule of csrc/bn254.cuh fmul_eo, word for word: each row's
+    products go to two accumulators (even words of a and p into E, odd into
+    F) as carry chains of 32-bit multiply-adds; between rows the sum is
+    E + e8 2^256 + F; the division by 2^32 swaps the accumulators.  Returns
+    the 257-bit integer before the final conditional subtract, and raises
+    if any word would overflow (a dropped carry)."""
+    mask = (1 << 32) - 1
+    A = [(a >> (32 * i)) & mask for i in range(8)]
+    Bw = [(b >> (32 * i)) & mask for i in range(8)]
+    Pw = [(p >> (32 * i)) & mask for i in range(8)]
+
+    def chain(acc, top, xs, y, cin=0):  # acc[0..7] += x_k y at word pairs (2k, 2k+1); carry into top
+        c = cin
+        for k, x in enumerate(xs):
+            for j, part in ((2 * k, (x * y) & mask), (2 * k + 1, (x * y) >> 32)):
+                acc[j], c = (acc[j] + part + c) & mask, (acc[j] + part + c) >> 32
+        assert top + c <= mask
+        return top + c
+
+    E = [0] * 8
+    F_ = [0] * 9  # F_[0] at word 0, F_[1..8] at words 1..8
+    for k in range(0, 8, 2):
+        E[k], E[k + 1] = (A[k] * Bw[0]) & mask, (A[k] * Bw[0]) >> 32
+        F_[k + 1], F_[k + 2] = (A[k + 1] * Bw[0]) & mask, (A[k + 1] * Bw[0]) >> 32
+    e8 = f9 = 0
+    for i in range(8):
+        if i:
+            F_[8] = 0
+            s = E[0] + F_[0]
+            E[0] = s & mask
+            odd = F_[1:9]
+            f9 = chain(odd, 0, A[1::2], Bw[i], cin=s >> 32)
+            F_[1:9] = odd
+            e8 = chain(E, e8, A[0::2], Bw[i])
+        m = (E[0] * n0) & mask
+        e8 = chain(E, e8, Pw[0::2], m)
+        assert E[0] == 0
+        odd = F_[1:9]
+        f9 = chain(odd, f9, Pw[1::2], m)
+        E, F_, e8 = odd, E[1:] + [e8, 0], f9
+    r = sum((E[k] + F_[k]) << (32 * k) for k in range(8)) + (e8 << 256)
+    return r
+
+
+@pytest.mark.parametrize("spec", [F.FQ, F.FR], ids=IDS)
+def test_fmul_eo_schedule_gives_the_montgomery_integer(spec):
+    """The two-chain schedule of mont_pow's and K6's Montgomery product gives
+    fmul's integer (a b + m p) / 2^256 for any a, b < 2^256 (not only values
+    below p), so the kernels keep the plain versions' limbs.  A check of the
+    schedule on python ints; the kernels themselves are held against the
+    plain versions on the card by chip_smoke.py."""
+    p, R = spec.modulus, 1 << 256
+    n0 = int(spec.kernel_words[8])
+    rng = np.random.default_rng(12)
+    top = [R - 1, R - 2, p, p - 1, 0, 1]
+    cases = [(x, y) for x in top for y in top]
+    cases += [(int.from_bytes(rng.bytes(32), "little") % p, int.from_bytes(rng.bytes(32), "little") % p) for _ in range(300)]
+    cases += [(int.from_bytes(rng.bytes(32), "little"), int.from_bytes(rng.bytes(32), "little")) for _ in range(300)]
+    for a, b in cases:
+        m = (-a * b * pow(p, -1, R)) % R
+        assert _fmul_eo_words(a, b, p, n0) == (a * b + m * p) // R
+
+
 def test_batch_inv_matches_jax():
     spec = F.FR
     vals = rand_ints(8, spec.modulus, 9) + [0, 1, spec.modulus - 1]

@@ -111,6 +111,30 @@ def test_horner_combine_plain_matches_jax_limb_for_limb():
         MK.horner_combine(C.G1(*(c[0] for c in batched)), 5)
 
 
+def test_paired_horner_combine_matches_single_msms_and_jax(monkeypatch):
+    """The decide's form: msm_serial_many (two point sets, one scalar set,
+    their window totals stacked into one Horner combine, one K6 launch on
+    the card) equals two single msm_serial results limb for limb, the JAX
+    package's Horner combine (the last step of its msm_serial) on the same
+    totals, and the oracle.  Small size: n = 4, window 4."""
+    window, signed = 4, False
+    (pts_a, scalars), (pts_b, _) = rand_case(11, 4), rand_case(12, 4)
+    sets = [C.g1_from_affine_ints(pts, "cpu") for pts in (pts_a, pts_b)]
+    scal = ints_to_tensor(scalars, "cpu")
+    totals, real = [], M.window_totals
+    monkeypatch.setattr(M, "window_totals", lambda *a: totals.append(real(*a)) or totals[-1])
+    paired = M.msm_serial_many(sets, scal, window, signed)
+    singles = [M.msm_serial(p, scal, window, signed) for p in sets]
+    for got, want in zip(paired, singles):
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    jax_totals = JC.G1(*(jnp.asarray(c) for c in g1_to_numpy(totals[0])))  # one set: each JAX scan compiles anew
+    assert_limbs(paired[0], JM._horner_combine(jax_totals, window))
+    assert [C.g1_to_affine_ints(C.G1(*(c[None] for c in got)))[0] for got in paired] == [
+        bn254.g1_msm(scalars, pts) for pts in (pts_a, pts_b)
+    ]
+    assert MK.horner_combine.launches == 0
+
+
 def test_g1_add_select_plain_matches_jax_limb_for_limb():
     """Random mask over identity, P + P, P + (-P) and generic rows, with a
     projective (z != 1) first operand."""

@@ -164,17 +164,18 @@ def test_build_command_targets_the_ignored_build_dir():
     assert all((_build.CSRC_DIR / s).exists() for s in _build.KERNEL_SOURCES + _build.HEADERS)
     assert set(_build.SIGNATURES) >= {
         "svtpu_g1_add_select", "svtpu_horner_combine", "svtpu_fq12_mul", "svtpu_msm_window", "svtpu_msm_horner",
-        "svtpu_miller_loop", "svtpu_final_exp",
+        "svtpu_miller_loop", "svtpu_final_exp", "svtpu_mont_pow",
     }
     assert len(_build.source_hash()) == 16
 
 
 def test_wrappers_route_cpu_tensors_to_plain_and_validate():
     a = convert.limbs_to_tensor(F.FQ.encode([3, 5]), "cpu")
-    wrappers = (FK.mont_mul, CK.g1_add, CK.g1_double, MK.msm_scan, CK.g1_add_select, MK.horner_combine, TC.fq12_mul_flat,
-                MK.msm_window, MK.msm_horner, PAIR.miller_loop_pair, PAIR.final_exponentiation)
+    wrappers = (FK.mont_mul, FK.mont_pow, CK.g1_add, CK.g1_double, MK.msm_scan, CK.g1_add_select, MK.horner_combine,
+                TC.fq12_mul_flat, MK.msm_window, MK.msm_horner, PAIR.miller_loop_pair, PAIR.final_exponentiation)
     launches = [w.launches for w in wrappers]
     assert torch.equal(FK.mont_mul(a, a, F.FQ), FK.mont_mul_plain(a, a, F.FQ))
+    assert torch.equal(FK.mont_pow(a, 7, F.FQ), FK.mont_pow_plain(a, 7, F.FQ))
     g = C.g1_from_affine_ints([None, (1, 2)], "cpu")
     assert all(torch.equal(x, y) for x, y in zip(CK.g1_add(g, g), CK.g1_add_plain(g, g)))
     assert all(torch.equal(x, y) for x, y in zip(CK.g1_double(g), CK.g1_double_plain(g)))
@@ -189,6 +190,10 @@ def test_wrappers_route_cpu_tensors_to_plain_and_validate():
         FK.mont_mul(a.int(), a, F.FQ)
     with pytest.raises(ValueError):
         FK.mont_mul(a[..., :8], a[..., :8], F.FQ)
+    with pytest.raises(ValueError):
+        FK.mont_mul(a, a, F.FQ, block=16)
+    with pytest.raises(ValueError):
+        MK.horner_combine(tot, 3, variant="lanes")
     with pytest.raises(ValueError):
         MK.msm_scan(torch.zeros(8, 3, 1, 2, 16, dtype=torch.int64), torch.zeros(2, 1, 64, dtype=torch.int64))
     with pytest.raises(ValueError):
