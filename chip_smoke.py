@@ -27,12 +27,20 @@ of both its accumulators) and config 4's aggregation fold:
    best); K8 and K9 also at K4's shape (reported beside their path's numbers
    as ``at_config1_shape``); K7's Miller-loop and final-exponentiation
    kernels at the decide's batch (1, doubled to 2 in the Miller loop) and at
-   8;
+   8; ``mont_pow`` also at exponents above 2^256 (two launches each); K2 and
+   K5 (a point add on 8 lanes, strided operands) at every width of their
+   launches on the main path (32 to 32768 adds) with affine, projective,
+   strided and broadcast operands and K5 masks all true, all false, random
+   and broadcast, against the oracle on 64 points, and their device time
+   per launch by schedule (8 lanes, or one thread: the kernels before this
+   design) and block size, the host's enqueue per call against the old
+   wrapper's, and the chain of one add (one add's launch less an empty
+   one);
 4. slice: 1820 proofs (4 unique ones tiled, 2 rows with a corrupted
    commitment, 1 row with a wrong instance) from the data-file fixture;
    accumulators equal the native verifier's, ``ok`` False exactly on the
    corrupted rows, K1-K4 and ``mont_pow`` launched by the run (at most 230
-   K1 launches), and the host pairing oracle decides a good and the
+   K1 launches, 6 K2 launches), and the host pairing oracle decides a good and the
    wrong-instance accumulator; warm time, proofs/s, peak memory, and a
    torch.profiler breakdown of one warm verify;
 5. SHPLONK through the same code at 64 proofs;
@@ -42,8 +50,9 @@ of both its accumulators) and config 4's aggregation fold:
    False with the slice's wrong-instance accumulator in one row; K1,
    ``mont_pow``, K2, K5, K6 and K7's two pairing kernels launched by it (one
    launch of each per pairing check, no single Fq12 product, one K6 launch
-   for both MSMs, at most 16 K1 and 2 ``mont_pow`` launches); warm time, verified
-   proofs/s (verify + decide), peak memory;
+   for both MSMs, at most 16 K1 and 2 ``mont_pow`` launches, 62 K5 and 34
+   K2 launches); warm time, verified proofs/s (verify + decide), peak
+   memory, and its profile with each K2/K5 schedule;
    ``build_verifier(decide_dk=...)`` on 8 proofs equal to the host oracle;
 7. large MSM: ``msm_serial`` at 2^16 (window 8) and 2^20 (window 11,
    signed) points, exact against the oracle; points/s and peak memory;
@@ -83,6 +92,7 @@ from __future__ import annotations
 
 import json
 import random
+import re
 import statistics
 import subprocess
 import sys
@@ -121,6 +131,13 @@ SCAN_SWEEP_BATCHES = (8, 66, 132, 264, 400, 528, 800, 1056, 1320, 1820)  # K4's 
 K1_SWEEP_BATCHES = (1, 64, B)  # K1's block-size sweep
 HORNER_SHAPES = ((32, 8), (24, 11))  # K6: (nwin, window) of the decide's MSM and of the 2^20 MSM (signed)
 DECIDE_MAX_K1, DECIDE_MAX_POW, VERIFY_MAX_K1 = 16, 2, 230  # launch ceilings on the decide and the Keccak verify
+# K2/K5: the widths of their launches on the main path (the decide's bucket
+# tree 32768 ... 32 pairs, flushes 8192, tree sums 4096 ... 32, suffix scans
+# 8192 ... 32; the verify's table build 32760), and their launch counts
+ADD_WIDTHS = (32768, 32760, 16384, 8192, 4096, 1024, 32)
+DECIDE_ADD_LAUNCHES = {"g1_add_select": 62, "g1_add": 34}
+VERIFY_ADD_LAUNCHES = {"g1_add": 6}
+BIG_EXPONENTS = ((1 << 256) + 7, (1 << 300) + 5)  # mont_pow above 2^256: a few launches over 256-bit pieces
 AGG_BATCH = 8  # the outer snark tiled, as tools/verify_aggregation_onchip.py
 FLIPPED_LIMB = 3  # instance limb flipped in the aggregation phase (old accumulator's lhs x, top limb)
 
@@ -147,6 +164,8 @@ MONT_PER = {"add": 12, "double": 8, "fq12": 54}  # Montgomery products per opera
 # Frobenius map 15 (p: five Fq2 coefficients) or 10 (p^2: in Fq).
 TOWER = {"fq2_mul": 3, "fq2_sqr": 2, "fq6_mul": 18, "fq6_sqr": 12, "fq12_mul": 54, "fq12_sqr": 36,
          "cyclotomic_sqr": 18, "line_mul": 36, "frob1": 15, "frob2": 10}
+ADD_PATH_WIDTHS = {}  # path -> the widths of its K2 and K5 launches, in order
+PROFILES = {}  # profile_run's label -> device busy ms, host aten ops and device time by kernel
 # utility ops torch.profiler leaves out of its event list
 UNLISTED_OPS = {"[memory]", "[OutOfMemory]", "profiler::_record_function_enter", "profiler::_record_function_enter_new",
                 "profiler::_record_function_exit", "aten::is_leaf", "aten::output_nr", "aten::_version"}
@@ -197,6 +216,22 @@ def device_ms(torch, fn, reps: int, sleep_ms: float = 40.0) -> float:
     require(enqueue_ms < sleep_ms, f"device_ms: enqueueing {reps} calls took {enqueue_ms:.1f} ms, more than the "
             f"{sleep_ms} ms sleep in front of them")
     return start.elapsed_time(stop) / reps
+
+
+def enqueue_ms(torch, fn, reps: int = 100, sleep_ms: float = 40.0) -> float:
+    """Mean host milliseconds to enqueue one call of ``fn``: after a warm-up
+    call, the ``reps`` calls are queued behind a sleep kernel, so the host
+    never waits for the card.  Raises if they outran the sleep."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(sleep_ms * 1e-3 * CLOCK_HZ))
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    require(host_ms < sleep_ms, f"enqueue_ms: {reps} calls took {host_ms:.1f} ms, more than the {sleep_ms} ms sleep")
+    return host_ms / reps
 
 
 def pow_products(exponent: int) -> int:
@@ -413,6 +448,21 @@ def phase_kernels_field(torch, dev, rng):
                         f"mont_pow {spec.name} n={n} e={e}: != python ints")
         log(f"kernel mont_pow {spec.name}: equal to plain (fmul_eo and fmul) and python ints at ({B},16) and "
             f"(1,16), exponents 0, 1, 256, p - 2, (p + 1) / 4")
+        # an exponent of 2^256 and above: one launch per 256-bit piece of the same chain
+        a, ta, _ = operands[spec.name]
+        for e in BIG_EXPONENTS:
+            before = FK.mont_pow.launches
+            got = FK.mont_pow(ta, e, spec)
+            launched = FK.mont_pow.launches - before
+            torch.cuda.synchronize()
+            require(torch.equal(got, FK.mont_pow_plain(ta, e, spec)), f"mont_pow {spec.name} e=2^{e.bit_length() - 1}+: != plain")
+            require(list(spec.decode(got)) == [pow(v, e, spec.modulus) for v in a], f"mont_pow {spec.name}: != python ints")
+            require(launched == len(FK.exponent_pieces(e)) == 2, f"mont_pow above 2^256: {launched} launches, not 2")
+        before = FK.mont_pow.launches
+        FK.mont_pow(ta, (1 << 256) - 1, spec)
+        require(FK.mont_pow.launches - before == 1, "mont_pow below 2^256 must be one launch")
+        log(f"kernel mont_pow {spec.name} ({B},16): exponents 2^256 + 7 and 2^300 + 5 equal to plain and python ints, "
+            f"two launches each (256-bit pieces); 2^256 - 1 one launch")
     _, ta, _ = operands["Fr"]
     e = F.FR.modulus - 2
     products = pow_products(e)
@@ -696,6 +746,201 @@ def phase_kernels_decide(torch, dev, rng, results_field):
         else:
             results["final_exp"][f"at_batch_{batch}"] = {k: res[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
     return results
+
+
+def add_operands(C, P2, R2, Q2, n):
+    """K2/K5's operand kinds at ``n`` adds, from (2 * top, 16) point tensors:
+    affine and projective first operands, the bucket tree's strided slices
+    ((rows, 2m)[:, 1::2] against [:, 0::2]; 1-D [1::2] where n is no multiple
+    of 32), g1_tree_sum's ((2m, 32)[1::2] against [0::2]), and one point
+    broadcast (stride 0) as the second operand."""
+    def cut(pt, sl):
+        return C.G1(*(c[sl] for c in pt))
+
+    q = cut(Q2, slice(0, n))
+    kinds = {"affine": (cut(P2, slice(0, n)), q), "projective": (cut(R2, slice(0, n)), q),
+             "broadcast": (cut(R2, slice(0, n)), cut(Q2, slice(5, 6)))}
+    if n % 32 == 0:
+        def tree(pt, start):
+            return C.G1(*(c[:2 * n].reshape(32, 2 * n // 32, 16)[:, start::2] for c in pt))
+
+        def rows(pt, start):
+            return C.G1(*(c[:2 * n].reshape(2 * n // 32, 32, 16)[start::2] for c in pt))
+
+        kinds["strided_tree"] = (tree(R2, 1), tree(Q2, 0))
+        kinds["strided_rows"] = (rows(R2, 1), rows(Q2, 0))
+    else:
+        kinds["strided_tree"] = (cut(R2, slice(1, 2 * n, 2)), cut(Q2, slice(0, 2 * n, 2)))
+    return kinds
+
+
+def phase_kernels_add(torch, dev, rng, results_field):
+    """K2 and K5, one point add on a group of 8 lanes reading two element
+    strides, against their plain versions bit for bit at every width of
+    ``ADD_WIDTHS``, with each operand kind of ``add_operands`` (K5 with masks
+    all true, all false and random, and one broadcast along a batch dim),
+    none of the strided or broadcast operands copied; the one-thread
+    schedule they had before (``add_points(schedule="thread")``) too;
+    against the oracle on 64 points.  Then device ms per launch at each
+    width, both schedules in mirrored turns, and the lane schedule at 64,
+    128 and 256 threads per block; the host's enqueue of one call on
+    contiguous and on the bucket tree's strided operands, against the
+    one-thread kernels on contiguous copies (the wrapper before this
+    design); and the chain of one add, measured: one add's launch less an
+    empty launch's, both by ``device_ms``."""
+    from snark_verifier_tpu_torch.ops import curve as C
+    from snark_verifier_tpu_torch.ops import curve_cuda as CK
+    from snark_verifier_tpu_torch.util import bn254
+
+    top = max(ADD_WIDTHS)
+    pool = [bn254.g1_mul(bn254.G1_GEN, rng.randrange(1, bn254.R)) for _ in range(64)]
+    ps = [pool[rng.randrange(64)] for _ in range(2 * top)]
+    qs = [pool[rng.randrange(64)] for _ in range(2 * top)]
+    ps[0], qs[1], qs[2], qs[3] = None, ps[1], bn254.g1_neg(ps[2]), None
+    P2, Q2 = C.g1_from_affine_ints(ps, dev), C.g1_from_affine_ints(qs, dev)
+    R2 = CK.g1_add_plain(P2, Q2)  # projective first operands (z != 1)
+
+    # the oracle on 64 points: P + Q, (P + Q) + Q, and K5's select
+    def first(pt):
+        return C.G1(*(c[:64] for c in pt))
+
+    m64 = torch.tensor([i % 3 != 1 for i in range(64)], device=dev)
+    sums = [bn254.g1_add(x, y) for x, y in zip(ps[:64], qs[:64])]
+    require(C.g1_to_affine_ints(CK.g1_add(first(P2), first(Q2))) == sums, "g1_add (lanes): != oracle")
+    require(C.g1_to_affine_ints(CK.g1_add(first(R2), first(Q2))) == [bn254.g1_add(s, y) for s, y in zip(sums, qs)],
+            "g1_add (lanes), projective first operand: != oracle")
+    require(C.g1_to_affine_ints(CK.g1_add_select(m64, first(P2), first(Q2))) ==
+            [s if k else x for s, x, k in zip(sums, ps, m64.tolist())], "g1_add_select (lanes): != oracle")
+
+    checked = 0
+    for n in ADD_WIDTHS:
+        for kind, (p, q) in add_operands(C, P2, R2, Q2, n).items():
+            batch = tuple(torch.broadcast_shapes(p.x.shape[:-1], q.x.shape[:-1]))
+            full = batch + (16,)
+            masks = {"all_true": torch.ones(batch, dtype=torch.bool, device=dev),
+                     "all_false": torch.zeros(batch, dtype=torch.bool, device=dev),
+                     "random": torch.rand(batch, device=dev) < 0.5,
+                     "broadcast": (torch.arange(batch[0], device=dev) % 3 != 1).reshape(-1, *([1] * (len(batch) - 1)))}
+            ins = [c.expand(full) for c in (*p, *q)]
+            kept, _, _, _, _ = CK.point_operands(ins, masks["broadcast"].expand(batch), batch)
+            require(all(a is b for a, b in zip(kept, ins)), f"K2/K5 n={n} {kind}: an operand was copied")
+            want = CK.g1_add_plain(p, q)
+            for sched in CK.SCHEDULES:
+                got, _ = CK.add_points(None, p, q, sched)
+                require(all(torch.equal(g, w) for g, w in zip(got, want)), f"g1_add n={n} {kind} {sched}: != plain")
+            require(all(torch.equal(g, w) for g, w in zip(CK.g1_add(p, q), want)), f"g1_add n={n} {kind}: != plain")
+            for mname, m in masks.items():
+                want = CK.g1_add_select_plain(m, p, q)
+                got = CK.g1_add_select(m, p, q)
+                require(all(torch.equal(g, w) for g, w in zip(got, want)),
+                        f"g1_add_select n={n} {kind} mask {mname}: != plain")
+                for sched in CK.SCHEDULES[1:]:
+                    got, _ = CK.add_points(m, p, q, sched)
+                    require(all(torch.equal(g, w) for g, w in zip(got, want)),
+                            f"g1_add_select n={n} {kind} mask {mname} ({sched}): != plain")
+                checked += 1
+            torch.cuda.synchronize()
+    log(f"kernels g1_add / g1_add_select (lanes): equal to plain at widths {ADD_WIDTHS} with affine, projective, "
+        f"strided and broadcast operands (none copied), {checked} K5 cases with masks all true, all false, random and "
+        f"broadcast; the one-thread schedule too; both equal to the oracle on 64 points")
+
+    latency = results_field["mont_pow"]["product_latency_ms"]
+    out = {"g1_add": {}, "g1_add_select": {}}
+    for n in ADD_WIDTHS:
+        p, q = C.G1(*(c[:n] for c in R2)), C.G1(*(c[:n] for c in Q2))
+        m = torch.rand(n, device=dev) < 0.5
+        for name, cond in (("g1_add", None), ("g1_add_select", m)):
+            want = (CK.g1_add_plain(p, q) if cond is None else CK.g1_add_select_plain(cond, p, q))
+            # every schedule twice, in mirrored turns (thread, ..., ..., thread)
+            order = (*reversed(CK.SCHEDULES), *CK.SCHEDULES)
+            turns = [(sched, device_ms(torch, lambda: CK.add_points(cond, p, q, sched), reps=50)) for sched in order]
+            per = {sched: statistics.mean(t for k, t in turns if k == sched) for sched in CK.SCHEDULES}
+            sweep = {}
+            for block in CK.ADD_BLOCKS:
+                got, _ = CK.add_points(cond, p, q, CK.SCHEDULES[0], block)
+                torch.cuda.synchronize()
+                require(all(torch.equal(g, w) for g, w in zip(got, want)), f"{name} n={n} block {block}: != plain")
+                sweep[block] = device_ms(torch, lambda: CK.add_points(cond, p, q, CK.SCHEDULES[0], block), reps=50)
+            # one call with its host enqueue (CUDA events), new and old schedule in turns
+            calls = [(sched, cuda_ms(torch, lambda: CK.add_points(cond, p, q, sched)))
+                     for sched in ("thread", CK.SCHEDULES[0], CK.SCHEDULES[0], "thread")]
+            call = {sched: statistics.mean(t for k, t in calls if k == sched) for sched in ("thread", CK.SCHEDULES[0])}
+            # the host's enqueue alone, on contiguous and on the tree's strided operands
+            enqueue = {}
+            for kind, (pk, qk) in (("contiguous", (p, q)), ("strided_tree", add_operands(C, P2, R2, Q2, n)["strided_tree"])):
+                ck = None if cond is None else torch.rand(pk.x.shape[:-1], device=dev) < 0.5
+                turns_h = [(sched, enqueue_ms(torch, lambda: CK.add_points(ck, pk, qk, sched)))
+                           for sched in ("thread", CK.SCHEDULES[0], CK.SCHEDULES[0], "thread")]
+                enqueue[kind] = {sched: statistics.mean(t for k, t in turns_h if k == sched)
+                                 for sched in ("thread", CK.SCHEDULES[0])}
+            b = bound(9 * n * FE_BYTES + (n if cond is not None else 0), MONT_PER["add"] * n)
+            best = min(sweep, key=sweep.get)
+            out[name][n] = {"device_ms": per, "turns_ms": turns, "call_ms": call, "enqueue_ms": enqueue,
+                            "block_sweep_device_ms": sweep, "best": best,
+                            "wrapper_over_best": sweep[CK.ADD_BLOCK] / sweep[best],
+                            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
+            log(f"kernel {name} n={n}: device ms per launch by schedule { {k: round(v, 5) for k, v in per.items()} } "
+                f"(one thread / {CK.SCHEDULES[0]} {per['thread'] / per[CK.SCHEDULES[0]]:.2f}x; turns "
+                f"{[(k, round(t, 5)) for k, t in turns]}); by block {sweep}, best {best}, the wrapper's "
+                f"{CK.ADD_BLOCK} {sweep[CK.ADD_BLOCK] / sweep[best]:.3f}x the best; one call with its enqueue "
+                f"{ {k: round(v, 5) for k, v in call.items()} } ms; host enqueue per call {enqueue} ms; "
+                f"bound {b['bound_ms']:.6f} ms ({b['bound_by']})")
+    # the chain of one add: a launch of one group less an empty launch, in turns
+    one_p, one_q, one_m = C.G1(*(c[:1] for c in R2)), C.G1(*(c[:1] for c in Q2)), torch.ones(1, dtype=torch.bool, device=dev)
+    for name, cond in (("g1_add", None), ("g1_add_select", one_m)):
+        turns = []
+        for sched in ("empty", *CK.SCHEDULES, *reversed(CK.SCHEDULES), "empty"):
+            fn = (lambda: torch.cuda._sleep(0)) if sched == "empty" else (lambda: CK.add_points(cond, one_p, one_q, sched))  # noqa: B023
+            turns.append((sched, device_ms(torch, fn, reps=50)))
+        one = {sched: statistics.mean(t for k, t in turns if k == sched) for sched in ("empty", *CK.SCHEDULES)}
+        chain = {sched: one[sched] - one["empty"] for sched in CK.SCHEDULES}
+        log(f"kernel {name}: one add's launch {one} ms (device_ms, in turns); its chain, less the empty launch: "
+            f"8 lanes {chain[CK.SCHEDULES[0]]:.6f} ms, one thread {chain['thread']:.6f} ms; products alone "
+            f"2 x fmul_eo {2 * latency['fmul_eo']:.6f} ms, 12 x fmul {12 * latency['fmul']:.6f} ms")
+        out[name] = {"by_width": out[name], "block": CK.ADD_BLOCK, "group_lanes": CK.GROUP, "one_add_ms": one,
+                     "critical_path_ms": chain[CK.SCHEDULES[0]], "critical_path_thread_ms": chain["thread"],
+                     "products_on_chain_ms": 2 * latency["fmul_eo"], "products_on_chain_thread_ms": 12 * latency["fmul"]}
+    return out
+
+
+def add_launch_recorder(CK):
+    """Wrap ``curve_cuda.add_points`` to record the width of every K2/K5
+    launch (it launches nothing of its own), and ``point_operands`` to record
+    how each call's operands fold at the last batch dim: how many reach the
+    kernel as they are, and the layout of each one copied.  Returns (record,
+    restore)."""
+    rec = {"g1_add": [], "g1_add_select": [], "folds": {"calls": 0, "folded": 0, "copied": []}}
+    launch, fold = CK.add_points, CK.point_operands
+
+    def recording(cond, p, q, *a, **k):
+        out, n = launch(cond, p, q, *a, **k)
+        rec["g1_add" if cond is None else "g1_add_select"].append(n)
+        return out, n
+
+    def folding(ins, mask, batch):
+        got = fold(ins, mask, batch)
+        rec["folds"]["calls"] += 1
+        for t, g in zip([*ins, mask], [*got[0], got[2]]):
+            if t is None:
+                continue
+            if g.data_ptr() == t.data_ptr() and g.stride() == t.stride():
+                rec["folds"]["folded"] += 1
+            else:
+                rec["folds"]["copied"].append({"batch": list(batch), "strides": list(t.stride())})
+        return got
+
+    CK.add_points, CK.point_operands = recording, folding
+
+    def restore():
+        CK.add_points, CK.point_operands = launch, fold
+
+    return rec, restore
+
+
+def fold_summary(folds: dict) -> str:
+    copied = folds["copied"]
+    return (f"of {folds['calls']} K2/K5 calls: {folds['folded']} folded at the last batch dim as they are, "
+            f"{len(copied)} copied{(' ' + str(copied[:4])) if copied else ''}")
 
 
 def wrappers():
@@ -1010,6 +1255,7 @@ def phase_config4(torch, dev, card):
 
 def phase_slice(torch, dev, card):
     from snark_verifier_tpu_torch import entry as E
+    from snark_verifier_tpu_torch.ops import curve_cuda as CK
     from snark_verifier_tpu_torch.parallel.batch import pack_instances, pack_proofs
 
     t0 = time.perf_counter()
@@ -1029,11 +1275,19 @@ def phase_slice(torch, dev, card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    out, launches = count_launches(torch, lambda: fn(*args), SLICE_KERNELS)
+    widths, restore = add_launch_recorder(CK)
+    try:
+        out, launches = count_launches(torch, lambda: fn(*args), SLICE_KERNELS)
+    finally:
+        restore()
     first_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev)
-    log(f"slice first run: {first_s:.3f} s; launches {launches}")
+    log(f"slice first run: {first_s:.3f} s; launches {launches}; K2 widths {widths['g1_add']}; operands "
+        f"{fold_summary(widths['folds'])}")
     require(launches["mont_mul"] <= VERIFY_MAX_K1, f"slice: {launches['mont_mul']} K1 launches, above {VERIFY_MAX_K1}")
+    require(all(launches[k] == v for k, v in VERIFY_ADD_LAUNCHES.items()),
+            f"slice: K2 launches {launches['g1_add']}, not {VERIFY_ADD_LAUNCHES['g1_add']}")
+    ADD_PATH_WIDTHS["verify"] = widths
 
     for key in ("lhs_x", "lhs_y", "rhs_x", "rhs_y"):
         v = out[key]
@@ -1120,6 +1374,8 @@ def profile_run(torch, label, anchor, fn, args, warm_s: float, ranges=()) -> dic
         log(f"{label} profile: the profiler recorded no {anchor} kernel; device busy share not measured")
         return {}, None
     busy_ms = sum(us for _, us in by.values()) / 1e3
+    PROFILES[label] = {"busy_ms": busy_ms, "host_aten_ops": host_ops, "device_ops": len(device),
+                       "by_kernel": {k: {"launches": c, "device_ms": us / 1e3} for k, (c, us) in by.items()}}
     ranked = sorted(by.items(), key=lambda kv: -kv[1][1])
     parts = ", ".join(f"{k} {c} launches {us / 1e3:.3f} ms" for k, (c, us) in ranked)
     log(f"{label} profile (one warm run): device busy {busy_ms:.3f} ms over {len(device)} device ops "
@@ -1130,18 +1386,26 @@ def profile_run(torch, label, anchor, fn, args, warm_s: float, ranges=()) -> dic
     return {k: us / c / 1e3 for k, (c, us) in by.items() if k in KERNELS}, least
 
 
-def log_ptxas(path) -> None:
-    """Registers, stack and spills per kernel from the build log."""
+def log_ptxas(path) -> dict:
+    """Registers, stack and spills per kernel from the build log; returns
+    them by kernel name (a schedule kept for comparison, such as K2/K5's
+    ``*_kernel_thread``, under its entry's own suffix)."""
+    found = {}
     if not path.exists():  # the library existed: nothing was compiled in this run
-        return
+        return found
     name = None
     for line in path.read_text().splitlines():
         if "Compiling entry function" in line:
             name = next((k for k in KERNELS if f"{k}_kernel" in line), None)
+            variant = name and re.search(rf"{name}_kernel(_[a-z]+|I[^E]*E)?", line).group(1)
+            if variant:  # a kept schedule (_thread) or a template argument (ILb1E: true)
+                name = f"{name} ({variant.strip('_')})"
         elif name and ("spill" in line or "registers" in line):
             log(f"ptxas {name}: {line.strip()}")
+            found.setdefault(name, []).append(line.strip())
             if "registers" in line:
                 name = None
+    return found
 
 
 def phase_shplonk(torch, dev):
@@ -1165,6 +1429,7 @@ def phase_decide(torch, dev, card, out, wrong_row, verify_s):
     one row; then build_verifier(decide_dk) on 8 proofs against the host
     oracle."""
     from snark_verifier_tpu_torch import entry as E
+    from snark_verifier_tpu_torch.ops import curve_cuda as CK
     from snark_verifier_tpu_torch.parallel.batch import build_verifier, pack_instances, pack_proofs
 
     fx = E.fixture(E.K, "gwc")
@@ -1176,10 +1441,20 @@ def phase_decide(torch, dev, card, out, wrong_row, verify_s):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    ok, launches = count_launches(torch, lambda: decider(*good_args), DECIDE_KERNELS)
+    widths, restore = add_launch_recorder(CK)
+    try:
+        ok, launches = count_launches(torch, lambda: decider(*good_args), DECIDE_KERNELS)
+    finally:
+        restore()
     first_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev)
     require(ok.shape == () and bool(ok) is True, "decide: the good batch must decide True")
+    require(all(launches[k] == v for k, v in DECIDE_ADD_LAUNCHES.items()),
+            f"decide: K5 and K2 launches {launches['g1_add_select']} and {launches['g1_add']}, not "
+            f"{DECIDE_ADD_LAUNCHES['g1_add_select']} and {DECIDE_ADD_LAUNCHES['g1_add']}")
+    ADD_PATH_WIDTHS["decide"] = widths
+    log(f"decide: K5 widths {widths['g1_add_select']}; K2 widths {widths['g1_add']}; operands "
+        f"{fold_summary(widths['folds'])}")
     require(launches["horner_combine"] == 1, f"decide: {launches['horner_combine']} K6 launches, not one for both MSMs")
     require(launches["mont_mul"] <= DECIDE_MAX_K1 and launches["mont_pow"] <= DECIDE_MAX_POW,
             f"decide: {launches['mont_mul']} K1 and {launches['mont_pow']} mont_pow launches, above "
@@ -1199,6 +1474,18 @@ def phase_decide(torch, dev, card, out, wrong_row, verify_s):
         f"{[round(t, 4) for t in times]}; verify + decide {B / (verify_s + warm):.1f} verified proofs/s "
         f"(verify {verify_s:.4f} s + decide {warm:.4f} s); peak memory {peak / 2**20:.1f} MiB, on {card}")
     per_launch, least = profile_run(torch, "decide", "final_exp", decider, good_args, warm)
+    # the same decide with the one-thread K2/K5 kernels on contiguous copies
+    # of strided operands (the wrappers before the 8-lane design), then the
+    # wrappers' again
+    launch = CK.add_points
+    for sched in CK.SCHEDULES[1:]:
+        CK.add_points = lambda cond, p, q, *a, **k: launch(cond, p, q, sched)  # noqa: B023
+        try:
+            decider(*good_args)
+            profile_run(torch, f"decide (K2/K5 {sched})", "final_exp", decider, good_args, warm)
+        finally:
+            CK.add_points = launch
+    profile_run(torch, "decide (again)", "final_exp", decider, good_args, warm)
 
     proofs = [fx.proofs[i % len(fx.proofs)] for i in range(DECIDE_PROOFS)]
     instances = [fx.instances[i % len(fx.proofs)] for i in range(DECIDE_PROOFS)]
@@ -1261,6 +1548,30 @@ def phase_msm(torch, dev, card, rng):
         torch.cuda.empty_cache()
 
 
+def add_path_totals(name: str, floor) -> dict:
+    """K2's or K5's launches, device ms (torch.profiler) and bound on the
+    verify and the decide: the bound as the sum over the path's launches of
+    max(that launch's bound, the per-launch floor), and the decide's device
+    time with each schedule from the same call."""
+    from snark_verifier_tpu_torch.ops import curve_cuda as CK
+
+    totals = {}
+    for path, widths in ADD_PATH_WIDTHS.items():
+        ns = widths[name]
+        if not ns:
+            continue
+        per = [bound(9 * n * FE_BYTES + (n if name == "g1_add_select" else 0), MONT_PER["add"] * n)["bound_ms"] for n in ns]
+        labels = {"slice"} if path == "verify" else {"decide", "decide (again)",
+                                                     *(f"decide (K2/K5 {k})" for k in CK.SCHEDULES[1:])}
+        prof = {label: PROFILES.get(label, {}).get("by_kernel", {}).get(name) for label in sorted(labels)}
+        totals[path] = {"launches": len(ns), "widths": ns, "bound_sum_ms": sum(per),
+                        "bound_with_floor_sum_ms": None if floor is None else sum(max(b, floor) for b in per),
+                        "profile": prof, "operand_folds": widths["folds"]}
+        log(f"{name} on the {path}: {len(ns)} launches, bound summed {sum(per):.6f} ms "
+            f"(with the floor {totals[path]['bound_with_floor_sum_ms']}); device time by schedule {prof}")
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -1281,7 +1592,7 @@ def main() -> int:
     _build.library()
     log(f"build: {path.name} in {build_s:.1f} s (nvcc {' '.join(_build.NVCC_FLAGS)})")
 
-    log_ptxas(path.with_suffix(".log"))
+    ptxas = log_ptxas(path.with_suffix(".log"))
 
     rng = random.Random(SEED)
     t_start = time.perf_counter()
@@ -1293,6 +1604,8 @@ def main() -> int:
     config1_windowed = phase_kernels_windowed(torch, dev, msm_case)
     del msm_case
     results.update(phase_kernels_decide(torch, dev, rng, results))
+    for name, res in phase_kernels_add(torch, dev, rng, results).items():
+        results[name]["lanes"] = res
     done("kernels")
     slice_launches, slice_per_launch, slice_least, out, wrong_row, verify_s = phase_slice(torch, dev, smi)
     phase_shplonk(torch, dev)
@@ -1343,6 +1656,9 @@ def main() -> int:
     for row in report:
         if row["name"] in ("mont_mul", "mont_pow"):
             row["launches_by_path"] = {k: v[row["name"]] for k, v in paths.items()}
+        row["ptxas"] = {k: v for k, v in ptxas.items() if k.split(" ")[0] == row["name"]}
+        if row["name"] in ("g1_add", "g1_add_select"):
+            row["lanes"]["paths"] = add_path_totals(row["name"], floor)
     print(json.dumps({"kernels": report}))
     print(smi)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}

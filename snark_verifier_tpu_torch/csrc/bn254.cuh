@@ -1,4 +1,4 @@
-// Shared device routines for the BN254 kernels (K1-K7).
+// Shared device routines for the BN254 kernels (K1-K9).
 //
 // Field elements cross the kernel boundary in the port's tensor layout: 16
 // little-endian 16-bit limbs held as int64, Montgomery form with R = 2^256.
@@ -350,6 +350,99 @@ __device__ __forceinline__ G1 g1_double(const G1& p, const Field& f) {
   r.x = fadd(x3, x3, f);
   r.y = y3;
   r.z = z3;
+  return r;
+}
+
+// ---- one complete add on a group of lanes (K2 and K5) ----------------------
+
+// Fe slots of one group's shared memory: p (0-2), q (3-5), the products of a
+// level (6-11), the second level's operands (12-17).
+constexpr int ADD_SLOTS = 18;
+
+// 16-byte shared-memory moves of one Fe (slots are 32-byte aligned).
+__device__ __forceinline__ Fe lds_fe(const Fe* p) {
+  const uint4* q = reinterpret_cast<const uint4*>(p);
+  const uint4 a = q[0], b = q[1];
+  Fe r;
+  r.w[0] = a.x, r.w[1] = a.y, r.w[2] = a.z, r.w[3] = a.w;
+  r.w[4] = b.x, r.w[5] = b.y, r.w[6] = b.z, r.w[7] = b.w;
+  return r;
+}
+
+__device__ __forceinline__ void sts_fe(Fe* p, const Fe& v) {
+  uint4* q = reinterpret_cast<uint4*>(p);
+  q[0] = make_uint4(v.w[0], v.w[1], v.w[2], v.w[3]);
+  q[1] = make_uint4(v.w[4], v.w[5], v.w[6], v.w[7]);
+}
+
+// c ? a : b, word by word: selects on values (a ternary on Fe lvalues
+// selects an address and puts them in local memory).
+__device__ __forceinline__ Fe fe_sel(bool c, const Fe& a, const Fe& b) {
+  Fe r;
+#pragma unroll
+  for (int j = 0; j < NW; ++j) r.w[j] = c ? a.w[j] : b.w[j];
+  return r;
+}
+
+// RCB15 alg. 7 (g1_add's operations and operands) on the G lanes of one
+// group, lane k of it (G a power of two from 8 to 32; every lane of the
+// warp runs this, `sync` names them).  On entry s[0..2] hold p and s[3..5]
+// q; every lane returns p + q, and s[0..2] still hold p.  Its 12 products
+// run as two levels of six independent products on lanes 0-5 (lanes 6 and
+// up repeat lane 0's), with fmul_eo: level 1 {x1 x2, y1 y2, z1 z2,
+// (x1 + y1)(x2 + y2), (y1 + z1)(y2 + z2), (x1 + z1)(x2 + z2)}, level 2
+// {t3 t1, t4 y3, t1 z3, y3 t0, z3 t4, t0 t3}.  Lane k reads its own level-1
+// operands from the slots and forms its own sums; the products go through
+// the slots.  The modular adds between the levels (18 of them) are split
+// over the lanes: lane r computes only level-2 operand r, the six chains in
+// lockstep as six steps of one add (or an add and a sub, selected) on
+// operands selected by the lane's role, and writes it; the longest chain,
+// y3's, is six operations.  Each lane then reads its pair.  The output
+// equals g1_add's bit for bit for any inputs below 2^256, since fmul_eo
+// gives fmul's integer.
+template <int G>
+__device__ __forceinline__ G1 g1_add_group(Fe* s, int k, unsigned sync, const Field& f) {
+  static_assert(G >= 8 && G <= 32 && (G & (G - 1)) == 0, "a group is 8, 16 or 32 lanes");
+  const int role = k < 6 ? k : 0;
+  // level 1: roles 0-2 the coordinates themselves, 3-5 the sums of (0, 1), (1, 2), (0, 2)
+  const int ia = role < 3 ? role : (role == 4 ? 1 : 0);
+  const int ib = role < 3 ? role : (role == 3 ? 1 : 2);
+  const Fe pa = lds_fe(s + ia), pb = lds_fe(s + ib), qa = lds_fe(s + 3 + ia), qb = lds_fe(s + 3 + ib);
+  const bool raw = role < 3;
+  Fe prod = fmul_eo(fe_sel(raw, pa, fadd(pa, pb, f)), fe_sel(raw, qa, fadd(qa, qb, f)), f);
+  if (k < 6) sts_fe(s + 6 + k, prod);
+  __syncwarp(sync);
+  const Fe t0 = lds_fe(s + 6), t1 = lds_fe(s + 7), t2 = lds_fe(s + 8);
+  // slots 12-17 get t3 (role 0), t4 (1), y3 (2), t0 (3), z3 (4), t1 (5),
+  // each the end of its role's chain:
+  //   t3 = r3 - (t0 + t1); t4 = r4 - (t1 + t2); t0 = (t0 + t0) + t0;
+  //   y = r5 - (t0 + t2), y3 = 9 y; 9 t2 = 8 t2 + t2, z3 = t1 + 9 t2, t1 = t1 - 9 t2
+  const Fe rr = lds_fe(s + 9 + (role < 3 ? role : 0));
+  Fe w = fadd(fe_sel(role == 1, t1, fe_sel(role >= 4, t2, t0)), fe_sel(role == 0, t1, fe_sel(role == 3, t0, t2)),
+           f);  // step 1
+  const Fe d = fsub(rr, w, f);  // step 2
+  w = fe_sel(role < 3, d, fadd(w, fe_sel(role == 3, t0, w), f));
+  const Fe y = w;
+  if (k < 2 || k == 3) sts_fe(s + 12 + k, w);  // t3, t4, t0 are done
+  w = fadd(w, w, f);                            // step 3: 2 y, 8 t2
+  w = fadd(w, fe_sel(role == 2, w, t2), f);     // step 4: 4 y, 9 t2
+  const Fe z = fadd(fe_sel(role == 2, w, t1), w, f);  // step 5: 8 y, z3
+  w = fe_sel(role == 5, fsub(t1, w, f), z);     //         t1
+  if (k == 4 || k == 5) sts_fe(s + 12 + k, w);
+  w = fadd(w, y, f);  // step 6: y3 = 8 y + y
+  if (k == 2) sts_fe(s + 12 + k, w);
+  // level 2, role r multiplies slot 12 + ra by slot 12 + rb:
+  // {t3 t1, t4 y3, t1 z3, y3 t0, z3 t4, t0 t3}
+  const int ra = role == 2 ? 5 : (role == 3 ? 2 : (role == 5 ? 3 : role));
+  const int rb = role == 0 ? 5 : (role == 1 ? 2 : (role == 2 ? 4 : (role == 3 ? 3 : (role == 4 ? 1 : 0))));
+  __syncwarp(sync);
+  prod = fmul_eo(lds_fe(s + 12 + ra), lds_fe(s + 12 + rb), f);
+  if (k < 6) sts_fe(s + 6 + k, prod);  // every lane read level 1's products before the sync above
+  __syncwarp(sync);
+  G1 r;
+  r.x = fsub(lds_fe(s + 6), lds_fe(s + 7), f);
+  r.y = fadd(lds_fe(s + 8), lds_fe(s + 9), f);
+  r.z = fadd(lds_fe(s + 10), lds_fe(s + 11), f);
   return r;
 }
 

@@ -6,23 +6,71 @@
 // (reached through g1_add_pallas / g1_add_t and g1_double_pallas /
 // g1_double_t; msm_pallas.py builds the MSM tables with them).  The TPU
 // kernels fuse the 12 (add) or 6 (double) Montgomery multiplies on (16, 512)
-// VMEM blocks; here one thread owns one point and keeps all of its
-// intermediates in registers.
+// VMEM blocks.
 //
 // K5 replaces curve_pallas.py _add_select_kernel (g1_add_select_pallas and
 // the transposed g1_add_select_t): the step of the large MSM's bucket tree,
 // of its flush and of g1_tree_sum.  It runs the K2 body and selects on a
 // one-byte mask, so the select costs no extra pass over the points.
 //
-// Bound on the H100: ALU and latency.  A point add is ~12 CIOS multiplies
-// (~1,600 multiply-adds) against 576 bytes of input and 384 of output, so
-// the card is far from its bandwidth; at the table build's 32,760 points the
-// launch fills the card only a few warps deep.  The design spends nothing
-// on memory (no shared memory, 16-byte loads) and leaves latency hiding to
-// the number of points in flight.
+// Bound on the H100: latency (the widest launches stay above it, below).
+// A point add is 12 CIOS multiplies (~3,200 32-bit multiplies) against 576
+// bytes of input and 384 of output, far from the card's bandwidth; its
+// bound by operations is 6.2 us at 32,768 adds.  With one thread per add
+// (kept below as the *_thread kernels, for chip_smoke.py's comparison only)
+// a launch took about one thread's chain of 12 dependent fmul (7.1 us of
+// products alone) plus ~25 dependent modular adds: 16-17 us per launch at
+// the decide's 8192 adds and fewer, which fill 64 blocks of 128 threads,
+// under half the 132 SMs, and 33-36 us at 32,768 (about 8 warps per SM at
+// 110 registers: too few to hide the chain).  So here a group of 8 lanes
+// owns one add (4 per warp; bn254.cuh g1_add_group):
+//   - the group loads p and q once, lane k the 16-byte limb pair k of each
+//     coordinate (neighbouring lanes on neighbouring addresses), into 18
+//     slots of shared memory per group; no device load sits on the chain
+//     after that;
+//   - the 12 products run as two levels of six independent products on
+//     lanes 0-5, with fmul_eo (two carry chains), exchanged through the
+//     slots under __syncwarp: the chain is 2 product latencies plus the
+//     adds between them;
+//   - the 18 modular adds between the levels are split over the lanes (lane
+//     r computes the second level's operand r, the six chains as six steps
+//     in lockstep): 58 registers; running all 18 on every lane took 80 and
+//     was 3-16 % slower from 1024 adds up, so it was dropped;
+//   - lane k stores limb pair k of each output coordinate; K5's mask is
+//     read by one lane and shuffled to the group, and a masked-off group
+//     stores p's words from the slots.
+// On an H100 SXM (700 W, chip_smoke.py) a launch takes 4.1-4.3 us at 32 to
+// 1024 adds, 7.4 us at 8192 and 21 us at 32,768, against 11.6-16.8 and 34 us
+// with one thread; 64-thread blocks (8 adds) were the fastest or within
+// 1.1 % at every width.  The widest launches stay at ~3.4x their bound:
+// every warp there runs its products on 6 of each 8 lanes, and whether
+// the multiply rate or the adds' instructions hold it is not measured.
+// Every point's coordinates are read through two element strides, its
+// outer and inner batch index (i / inner, i % inner; the inner index is the
+// last batch dim, the outer one the leading dims folded): the bucket tree's
+// even/odd slices, g1_tree_sum's slices and broadcast operands (stride 0)
+// reach the kernel without a copy.  The output equals the one-thread
+// kernels' limb for limb: the same operations on the same operands, and
+// fmul_eo gives fmul's integer.
 #include "bn254.cuh"
 
 namespace {
+
+constexpr int ADD_GROUP = 8;        // lanes per point add (K2, K5)
+constexpr int ADD_BLOCK_MAX = 256;  // the largest block the wrapper launches
+
+// K2/K5's inputs: coordinate c of point i (x1, y1, z1, x2, y2, z2) starts
+// at c[c] + (i / inner) * s0[c] + (i % inner) * s1[c] (int64 elements, 16
+// limbs contiguous and 16-byte aligned); K5's mask byte of point i at
+// mask + (i / inner) * m0 + (i % inner) * m1.  ops/curve_cuda.py
+// point_offsets is the same map.
+struct AddOperands {
+  const int64_t* c[6];
+  int64_t s0[6], s1[6];
+  const uint8_t* mask;
+  int64_t m0, m1;
+  int64_t n, inner;
+};
 
 __device__ __forceinline__ svtpu::G1 load_point(const int64_t* x, const int64_t* y,
                                                 const int64_t* z, int64_t i) {
@@ -40,16 +88,101 @@ __device__ __forceinline__ void store_point(int64_t* x, int64_t* y, int64_t* z, 
   svtpu::store_fe(z + 16 * i, p.z);
 }
 
-__global__ void g1_add_kernel(const int64_t* __restrict__ x1, const int64_t* __restrict__ y1,
-                              const int64_t* __restrict__ z1, const int64_t* __restrict__ x2,
-                              const int64_t* __restrict__ y2, const int64_t* __restrict__ z2,
-                              int64_t* __restrict__ ox, int64_t* __restrict__ oy,
-                              int64_t* __restrict__ oz, int64_t n, svtpu::Field f) {
+// Word j of a, as a select chain: no register array is indexed at run time.
+__device__ __forceinline__ uint32_t fe_word(const svtpu::Fe& a, int j) {
+  uint32_t r = a.w[0];
+#pragma unroll
+  for (int k = 1; k < svtpu::NW; ++k) r = j == k ? a.w[k] : r;
+  return r;
+}
+
+__device__ __forceinline__ void store_word(int64_t* dst, int64_t i, int k, uint32_t w) {
+  longlong2 v;
+  v.x = static_cast<long long>(w & 0xFFFFu);
+  v.y = static_cast<long long>(w >> 16);
+  reinterpret_cast<longlong2*>(dst + 16 * i)[k] = v;
+}
+
+// Point i = (block * blockDim + thread) / ADD_GROUP, lane k = thread %
+// ADD_GROUP; a group past the end loads the last point and stores nothing,
+// so every lane of every warp reaches the __syncwarp()s.
+template <bool kSelect>
+__device__ __forceinline__ void add_lanes(const AddOperands& a, int64_t* ox, int64_t* oy, int64_t* oz,
+                                          const svtpu::Field& f) {
+  extern __shared__ uint4 add_slots[];
+  const int t = threadIdx.x, k = t & (ADD_GROUP - 1);
+  svtpu::Fe* s = reinterpret_cast<svtpu::Fe*>(add_slots) + (t / ADD_GROUP) * svtpu::ADD_SLOTS;
+  uint32_t* words = reinterpret_cast<uint32_t*>(s);
+  const int64_t i = (static_cast<int64_t>(blockIdx.x) * blockDim.x + t) / ADD_GROUP;
+  const bool live = i < a.n;
+  const int64_t li = live ? i : a.n - 1;
+  const int64_t o = li / a.inner, r = li - o * a.inner;
+#pragma unroll
+  for (int c = 0; c < 6; ++c) {
+    const longlong2 v = reinterpret_cast<const longlong2*>(a.c[c] + o * a.s0[c] + r * a.s1[c])[k];
+    words[c * svtpu::NW + k] = static_cast<uint32_t>(v.x) | (static_cast<uint32_t>(v.y) << 16);
+  }
+  unsigned take = 1;
+  if (kSelect) {
+    const unsigned m = k == 0 ? static_cast<unsigned>(a.mask[o * a.m0 + r * a.m1]) : 0u;
+    take = __shfl_sync(0xffffffffu, m, 0, ADD_GROUP);
+  }
+  __syncwarp();
+  const svtpu::G1 sum = svtpu::g1_add_group<ADD_GROUP>(s, k, 0xffffffffu, f);
+  if (!live) return;
+  uint32_t x = fe_word(sum.x, k), y = fe_word(sum.y, k), z = fe_word(sum.z, k);
+  if (kSelect && !take) {  // p, still in slots 0-2
+    x = words[k];
+    y = words[svtpu::NW + k];
+    z = words[2 * svtpu::NW + k];
+  }
+  store_word(ox, i, k, x);
+  store_word(oy, i, k, y);
+  store_word(oz, i, k, z);
+}
+
+__global__ void __launch_bounds__(ADD_BLOCK_MAX)
+    g1_add_kernel(const __grid_constant__ AddOperands a, int64_t* __restrict__ ox, int64_t* __restrict__ oy,
+                  int64_t* __restrict__ oz, svtpu::Field f) {
+  add_lanes<false>(a, ox, oy, oz, f);
+}
+
+__global__ void __launch_bounds__(ADD_BLOCK_MAX)
+    g1_add_select_kernel(const __grid_constant__ AddOperands a, int64_t* __restrict__ ox, int64_t* __restrict__ oy,
+                         int64_t* __restrict__ oz, svtpu::Field f) {
+  add_lanes<true>(a, ox, oy, oz, f);
+}
+
+// The one-thread schedules K2 and K5 had before their redesign: contiguous
+// inputs, svtpu::g1_add on one thread.  Only chip_smoke.py launches them,
+// to time the old schedule beside the new one in one run.
+__global__ void g1_add_kernel_thread(const int64_t* __restrict__ x1, const int64_t* __restrict__ y1,
+                                     const int64_t* __restrict__ z1, const int64_t* __restrict__ x2,
+                                     const int64_t* __restrict__ y2, const int64_t* __restrict__ z2,
+                                     int64_t* __restrict__ ox, int64_t* __restrict__ oy,
+                                     int64_t* __restrict__ oz, int64_t n, svtpu::Field f) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const svtpu::G1 p = load_point(x1, y1, z1, i);
   const svtpu::G1 q = load_point(x2, y2, z2, i);
   store_point(ox, oy, oz, i, svtpu::g1_add(p, q, f));
+}
+
+__global__ void g1_add_select_kernel_thread(const int64_t* __restrict__ x1,
+                                            const int64_t* __restrict__ y1,
+                                            const int64_t* __restrict__ z1,
+                                            const int64_t* __restrict__ x2,
+                                            const int64_t* __restrict__ y2,
+                                            const int64_t* __restrict__ z2,
+                                            const uint8_t* __restrict__ mask,
+                                            int64_t* __restrict__ ox, int64_t* __restrict__ oy,
+                                            int64_t* __restrict__ oz, int64_t n, svtpu::Field f) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const svtpu::G1 p = load_point(x1, y1, z1, i);
+  const svtpu::G1 q = load_point(x2, y2, z2, i);
+  const svtpu::G1 s = svtpu::g1_add(p, q, f);
+  store_point(ox, oy, oz, i, mask[i] ? s : p);
 }
 
 __global__ void g1_double_kernel(const int64_t* __restrict__ x, const int64_t* __restrict__ y,
@@ -61,31 +194,51 @@ __global__ void g1_double_kernel(const int64_t* __restrict__ x, const int64_t* _
   store_point(ox, oy, oz, i, svtpu::g1_double(load_point(x, y, z, i), f));
 }
 
-__global__ void g1_add_select_kernel(const int64_t* __restrict__ x1,
-                                     const int64_t* __restrict__ y1,
-                                     const int64_t* __restrict__ z1,
-                                     const int64_t* __restrict__ x2,
-                                     const int64_t* __restrict__ y2,
-                                     const int64_t* __restrict__ z2,
-                                     const uint8_t* __restrict__ mask, int64_t* __restrict__ ox,
-                                     int64_t* __restrict__ oy, int64_t* __restrict__ oz,
-                                     int64_t n, svtpu::Field f) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const svtpu::G1 p = load_point(x1, y1, z1, i);
-  const svtpu::G1 q = load_point(x2, y2, z2, i);
-  const svtpu::G1 s = svtpu::g1_add(p, q, f);
-  store_point(ox, oy, oz, i, mask[i] ? s : p);
-}
-
 }  // namespace
+
+// K2 (mask null) or K5 on groups of 8 lanes.  coords: the 6 coordinate
+// pointers x1, y1, z1, x2, y2, z2; strides: (s0, s1) of each, 12 int64;
+// mask_strides: (m0, m1); inner: the inner index's extent (>= 1); block: a
+// multiple of 32 up to 256 threads (block / 8 points per block).
+extern "C" int svtpu_g1_add_lanes(const void* const* coords, const int64_t* strides, const void* mask,
+                                  const int64_t* mask_strides, void* ox, void* oy, void* oz, int64_t n,
+                                  int64_t inner, const void* field_words, int block, void* stream) {
+  if (n <= 0) return 0;
+  if (block <= 0 || block % 32 != 0 || block > ADD_BLOCK_MAX || inner <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const svtpu::Field f = svtpu::field_from_host(static_cast<const uint32_t*>(field_words));
+  AddOperands a;
+  for (int c = 0; c < 6; ++c) {
+    a.c[c] = static_cast<const int64_t*>(coords[c]);
+    a.s0[c] = strides[2 * c];
+    a.s1[c] = strides[2 * c + 1];
+  }
+  a.mask = static_cast<const uint8_t*>(mask);
+  a.m0 = mask ? mask_strides[0] : 0;
+  a.m1 = mask ? mask_strides[1] : 0;
+  a.n = n;
+  a.inner = inner;
+  const int grid = svtpu::grid_for(n * ADD_GROUP, block);
+  const size_t smem = static_cast<size_t>(block / ADD_GROUP) * svtpu::ADD_SLOTS * sizeof(svtpu::Fe);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int64_t* x = static_cast<int64_t*>(ox);
+  int64_t* y = static_cast<int64_t*>(oy);
+  int64_t* z = static_cast<int64_t*>(oz);
+  if (mask) {
+    g1_add_select_kernel<<<grid, block, smem, s>>>(a, x, y, z, f);
+  } else {
+    g1_add_kernel<<<grid, block, smem, s>>>(a, x, y, z, f);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int svtpu_g1_add(const void* x1, const void* y1, const void* z1, const void* x2,
                             const void* y2, const void* z2, void* ox, void* oy, void* oz,
                             int64_t n, const void* field_words, int block, void* stream) {
   if (n <= 0) return 0;
   const svtpu::Field f = svtpu::field_from_host(static_cast<const uint32_t*>(field_words));
-  g1_add_kernel<<<svtpu::grid_for(n, block), block, 0, static_cast<cudaStream_t>(stream)>>>(
+  g1_add_kernel_thread<<<svtpu::grid_for(n, block), block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(x1), static_cast<const int64_t*>(y1),
       static_cast<const int64_t*>(z1), static_cast<const int64_t*>(x2),
       static_cast<const int64_t*>(y2), static_cast<const int64_t*>(z2),
@@ -111,8 +264,8 @@ extern "C" int svtpu_g1_add_select(const void* x1, const void* y1, const void* z
                                    int block, void* stream) {
   if (n <= 0) return 0;
   const svtpu::Field f = svtpu::field_from_host(static_cast<const uint32_t*>(field_words));
-  g1_add_select_kernel<<<svtpu::grid_for(n, block), block, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+  g1_add_select_kernel_thread<<<svtpu::grid_for(n, block), block, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(x1), static_cast<const int64_t*>(y1),
       static_cast<const int64_t*>(z1), static_cast<const int64_t*>(x2),
       static_cast<const int64_t*>(y2), static_cast<const int64_t*>(z2),

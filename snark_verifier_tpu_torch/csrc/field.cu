@@ -30,7 +30,11 @@
 // 329 dependent product latencies, so the kernel is latency bound, and
 // 32-thread blocks spread a batch over many SMs (57 at N = 1820).  The
 // product is fmul_eo (two carry chains, bn254.cuh) or fmul, chosen by the
-// launch, for measuring one against the other.
+// launch, for measuring one against the other.  An exponent above 2^256
+// runs as a few launches over 64-window pieces of the same chain, most
+// significant first: each later launch starts from the one before's
+// accumulator (acc_in) and runs all 64 of its windows, leading zero digits
+// included, so the products are the plain chain's one for one.
 #include "bn254.cuh"
 
 namespace {
@@ -59,6 +63,7 @@ __device__ __forceinline__ svtpu::Fe pow_mul(const svtpu::Fe& a, const svtpu::Fe
 
 template <bool kEvenOdd>
 __global__ void __launch_bounds__(POW_BLOCK) mont_pow_kernel(const int64_t* __restrict__ a,
+                                                             const int64_t* __restrict__ acc_in,
                                                              int64_t* __restrict__ out, int64_t n,
                                                              svtpu::Field f, Exponent e) {
   __shared__ uint32_t table[POW_TABLE][svtpu::NW][POW_BLOCK];
@@ -90,8 +95,13 @@ __global__ void __launch_bounds__(POW_BLOCK) mont_pow_kernel(const int64_t* __re
     acc = pow_mul<kEvenOdd>(acc, x, f);
     put(k, acc);
   }
-  acc = get(digit(nwin - 1));
-  for (int w = nwin - 2; w >= 0; --w) {
+  int w = nwin - 1;
+  if (acc_in != nullptr) {
+    acc = svtpu::load_fe(acc_in + 16 * i);  // a later piece: every window of it
+  } else {
+    acc = get(digit(w--));
+  }
+  for (; w >= 0; --w) {
 #pragma unroll
     for (int k = 0; k < 4; ++k) acc = pow_mul<kEvenOdd>(acc, acc, f);
     acc = pow_mul<kEvenOdd>(acc, get(digit(w)), f);
@@ -112,9 +122,12 @@ extern "C" int svtpu_mont_mul(const void* a, const void* b, void* out, int64_t n
 }
 
 // exponent_words: 8 little-endian u32 words; bits: the exponent's bit length
-// (at most 256); even_odd: 1 for fmul_eo, 0 for fmul.
-extern "C" int svtpu_mont_pow(const void* a, void* out, int64_t n, const void* field_words,
-                              const void* exponent_words, int bits, int even_odd, void* stream) {
+// (at most 256); acc_in: null for the chain's first piece, else the
+// accumulator of the piece before (then bits is 256: all 64 windows);
+// even_odd: 1 for fmul_eo, 0 for fmul.
+extern "C" int svtpu_mont_pow(const void* a, const void* acc_in, void* out, int64_t n,
+                              const void* field_words, const void* exponent_words, int bits,
+                              int even_odd, void* stream) {
   if (n <= 0) return 0;
   if (bits < 0 || bits > 32 * svtpu::NW) return static_cast<int>(cudaErrorInvalidValue);
   const svtpu::Field f = svtpu::field_from_host(static_cast<const uint32_t*>(field_words));
@@ -124,11 +137,12 @@ extern "C" int svtpu_mont_pow(const void* a, void* out, int64_t n, const void* f
   const int grid = svtpu::grid_for(n, POW_BLOCK);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t* src = static_cast<const int64_t*>(a);
+  const int64_t* prev = static_cast<const int64_t*>(acc_in);
   int64_t* dst = static_cast<int64_t*>(out);
   if (even_odd) {
-    mont_pow_kernel<true><<<grid, POW_BLOCK, 0, s>>>(src, dst, n, f, e);
+    mont_pow_kernel<true><<<grid, POW_BLOCK, 0, s>>>(src, prev, dst, n, f, e);
   } else {
-    mont_pow_kernel<false><<<grid, POW_BLOCK, 0, s>>>(src, dst, n, f, e);
+    mont_pow_kernel<false><<<grid, POW_BLOCK, 0, s>>>(src, prev, dst, n, f, e);
   }
   return static_cast<int>(cudaGetLastError());
 }

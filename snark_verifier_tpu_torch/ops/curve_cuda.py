@@ -7,7 +7,10 @@ K2 and K3 (``csrc/curve.cu``) replace ``snark_verifier_tpu/ops/curve_pallas.py``
 tables.  K5 (``csrc/curve.cu``) replaces ``_add_select_kernel``
 (``g1_add_select_pallas`` and ``g1_add_select_t``), the step of the large
 MSM's bucket tree, its flush and ``g1_tree_sum``.  What bounds them on the
-H100 and what the design does about it is in the source's header.
+H100 and what the design does about it is in the source's header: K2 and K5
+run one point add on a group of ``GROUP`` lanes and read each coordinate
+through two element strides (``point_operands``), so strided slices and
+broadcast operands reach them without a copy.
 
 The plain versions run RCB15 algorithms 7 and 9 with the same field
 operations on the same operands as ``curve_pallas._add_core``/``_dbl_core``,
@@ -17,6 +20,9 @@ an add), which changes no value and cuts the number of tensor ops.
 """
 
 from __future__ import annotations
+
+import ctypes
+import math
 
 import torch
 
@@ -35,6 +41,16 @@ from snark_verifier_tpu_torch.ops.field_cuda import (
 )
 
 FQ = F.FQ
+GROUP = 8  # lanes per point add of K2/K5 (csrc/curve.cu ADD_GROUP)
+# K2/K5's threads per block (8 adds): 64 was the fastest of the sweep
+# (chip_smoke.py) or within 1.1 % of it at every width of the main path,
+# 32 to 32768 adds, on the H100; 128 within 3 %, 256 up to 27 % slower.
+ADD_BLOCK = 64
+ADD_BLOCKS = (64, 128, 256)  # the block sizes chip_smoke.py sweeps for K2/K5
+# K2/K5's schedules: 8 lanes per add, and the one-thread kernels before
+# them; the wrappers launch the first (chip_smoke.py times both)
+SCHEDULES = ("lanes", "thread")
+_COORDS, _STRIDES, _PAIR = ctypes.c_void_p * 6, ctypes.c_int64 * 12, ctypes.c_int64 * 2  # svtpu_g1_add_lanes' arrays
 
 
 def _mul(a, b):
@@ -88,16 +104,131 @@ def g1_double_plain(p: G1) -> G1:
     return G1(x3, y3, z3)
 
 
+def fold_stride(sizes, strides) -> int | None:
+    """The one stride that walks dims ``sizes`` in row-major order on a view
+    with ``strides`` (dims of extent 1 ignored; 0 when none is left), or
+    None when they do not fold into one."""
+    last = None
+    for n, st in zip(sizes, strides):
+        if n == 1:
+            continue
+        if last is not None and last != st * n:
+            return None
+        last = st
+    return 0 if last is None else last
+
+
+def _fold(strides, batch, even: bool):
+    """(s0, s1) of a batch with ``strides``: the last dim is the inner index
+    and the leading dims fold into the outer one.  None where the leading
+    dims do not fold, or where a stride is odd and ``even`` asks for even."""
+    if not batch:
+        return 0, 0
+    s0 = fold_stride(batch[:-1], strides[:-1])
+    s1 = strides[-1] if batch[-1] > 1 else 0
+    if s0 is None or (even and (s0 % 2 or s1 % 2)):
+        return None
+    return s0, s1
+
+
+def point_operands(ins, mask, batch):
+    """K2/K5's operands over ``batch``: each (..., 16) operand of ``ins``
+    (already expanded to ``batch``) with its (s0, s1), and ``mask`` (bool,
+    expanded, or None) as bytes with its own; the inner index is the last
+    batch dim, the outer one the leading dims folded.  A limb operand folds
+    only with its limbs contiguous and every point 16-byte aligned (the
+    kernel loads limb pairs), so with even strides.  An operand that does
+    not fold is copied (contiguous, aligned).  Operands of one layout are
+    folded once (the host's time per call counts: the decide is
+    host-bound).  Returns (ins, strides, mask, mask_strides, inner)."""
+    out, strides, folds = [], [], {}
+    for t in ins:
+        st = t.stride()
+        if st not in folds:
+            folds[st] = _fold(st[:-1], batch, True) if st[-1] == 1 else None
+        pair = folds[st]
+        if pair is None or t.data_ptr() % 16:
+            t = _aligned(t)
+            pair = _fold(t.stride()[:-1], batch, True)
+        out.append(t)
+        strides.append(pair)
+    mask_strides = (0, 0)
+    if mask is not None:
+        mask = mask.view(torch.uint8)
+        mask_strides = _fold(mask.stride(), batch, False)
+        if mask_strides is None:
+            mask = mask.contiguous()
+            mask_strides = _fold(mask.stride(), batch, False)
+    return out, strides, mask, mask_strides, batch[-1] if batch else 1
+
+
+def point_offsets(i, inner: int, s0: int, s1: int):
+    """Element offset of point ``i``'s first limb (or mask byte) from the
+    operand's start: the kernel's map (csrc/curve.cu AddOperands)."""
+    return (i // inner) * s0 + (i % inner) * s1
+
+
+def add_grid(n: int, block: int = ADD_BLOCK) -> int:
+    """K2/K5's blocks for ``n`` adds: ``GROUP`` lanes each, ``block`` threads
+    per block; thread t of block b serves add (b * block + t) // GROUP."""
+    return -(-n * GROUP // block)
+
+
+def add_points(cond, p: G1, q: G1, schedule: str = SCHEDULES[0], block: int = ADD_BLOCK):
+    """One launch of K5 (``cond`` bool) or K2 (``cond`` None) on CUDA point
+    batches (broadcasting): the wrappers' launch, and chip_smoke.py's, which
+    also times the other ``SCHEDULES`` ("thread": the one-thread kernels
+    before this design, on contiguous copies of the operands) and the blocks
+    of ``ADD_BLOCKS``.  Counts nothing.  Returns (sum, number of adds)."""
+    if schedule not in SCHEDULES:
+        raise ValueError(f"add_points: schedule must be one of {SCHEDULES}, got {schedule!r}")
+    if block not in ADD_BLOCKS:
+        raise ValueError(f"add_points: block must be one of {ADD_BLOCKS}, got {block}")
+    ins = [*p, *q]
+    full = ins[0].shape
+    batch = tuple(full[:-1])
+    if any(c.shape != full for c in ins) or (cond is not None and cond.shape != full[:-1]):
+        shapes = [c.shape[:-1] for c in ins] + ([cond.shape] if cond is not None else [])
+        batch = tuple(torch.broadcast_shapes(*shapes))
+        full = batch + (F.NLIMB,)
+        ins = [c.expand(full) for c in ins]
+    mask = cond if cond is None or cond.shape == batch else cond.expand(batch)
+    dev = ins[0].device
+    outs = [torch.empty(full, dtype=torch.int64, device=dev) for _ in range(3)]
+    n = math.prod(batch)
+    if n == 0:
+        return G1(*outs), 0
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        if schedule == "thread":
+            ins = [_aligned(t) for t in ins]
+            ptrs = [t.data_ptr() for t in ins]
+            if mask is None:
+                code = lib.svtpu_g1_add(*ptrs, *(o.data_ptr() for o in outs), n, field_arg(FQ), BLOCK, stream_of(ins[0]))
+            else:
+                m = mask.contiguous().view(torch.uint8)
+                code = lib.svtpu_g1_add_select(*ptrs, m.data_ptr(), *(o.data_ptr() for o in outs), n, field_arg(FQ),
+                                               BLOCK, stream_of(ins[0]))
+        else:
+            ins, strides, mask, mask_strides, inner = point_operands(ins, mask, batch)
+            code = lib.svtpu_g1_add_lanes(
+                _COORDS(*[t.data_ptr() for t in ins]), _STRIDES(*[v for pair in strides for v in pair]),
+                None if mask is None else mask.data_ptr(), _PAIR(*mask_strides),
+                *(o.data_ptr() for o in outs), n, inner, field_arg(FQ), block, stream_of(ins[0]))
+    _build.check(code, "g1_add" if cond is None else "g1_add_select")
+    return G1(*outs), n
+
+
 def g1_add(p: G1, q: G1) -> G1:
     """Complete add of point batches (broadcasting).  CUDA tensors launch
     K2; CPU tensors take ``g1_add_plain``."""
     check_limbs("g1_add", *p, *q)
     if not use_kernel(*p, *q):
         return g1_add_plain(p, q)
-    outs, n = launch_elementwise("g1_add", (*p, *q), 3, FQ)
+    out, n = add_points(None, p, q)
     if n:
         g1_add.launches += 1
-    return G1(*outs)
+    return out
 
 
 def g1_double(p: G1) -> G1:
@@ -126,21 +257,10 @@ def g1_add_select(cond, p: G1, q: G1) -> G1:
         raise ValueError(f"g1_add_select: cond must be bool, got {cond.dtype}")
     if not use_kernel(cond, *p, *q):
         return g1_add_select_plain(cond, p, q)
-    batch = torch.broadcast_shapes(cond.shape, *(c.shape[:-1] for c in (*p, *q)))
-    full = tuple(batch) + (F.NLIMB,)
-    ins = [_aligned(c.expand(full)) for c in (*p, *q)]
-    mask = cond.expand(batch).contiguous().view(torch.uint8)
-    n = mask.numel()
-    outs = [torch.empty(full, dtype=torch.int64, device=mask.device) for _ in range(3)]
-    with torch.cuda.device(mask.device):
-        code = _build.library().svtpu_g1_add_select(
-            *(t.data_ptr() for t in ins), mask.data_ptr(), *(o.data_ptr() for o in outs),
-            n, field_arg(FQ), BLOCK, stream_of(mask),
-        )
-    _build.check(code, "g1_add_select")
+    out, n = add_points(cond, p, q)
     if n:
         g1_add_select.launches += 1
-    return G1(*outs)
+    return out
 
 
 g1_add.launches = 0

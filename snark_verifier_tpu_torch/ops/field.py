@@ -242,9 +242,10 @@ def select(cond, a, b):
 
 
 def pow_const(a, exponent: int, spec: FieldSpec):
-    """a^exponent for a python-int exponent (0 <= exponent < 2^256): 4-bit
-    fixed windows, MSB first; one ``mont_pow`` launch on CUDA tensors, its
-    plain version on CPU tensors."""
+    """a^exponent for a python-int exponent >= 0, as the JAX package's
+    ``pow_const``: 4-bit fixed windows, MSB first; on CUDA tensors one
+    ``mont_pow`` launch below 2^256 (one per 256-bit piece above), its plain
+    version on CPU tensors."""
     from snark_verifier_tpu_torch.ops import field_cuda
 
     return field_cuda.mont_pow(a, exponent, spec)

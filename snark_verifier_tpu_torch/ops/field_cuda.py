@@ -152,6 +152,9 @@ def mont_pow_plain(a, exponent: int, spec: FieldSpec, mul=mont_mul_plain):
     return acc
 
 
+POW_PIECE_WINDOWS = 256 // POW_WINDOW  # windows of one mont_pow launch's exponent piece
+
+
 def exponent_arg(exponent: int):
     """The exponent as 8 little-endian u32 words (a ctypes array) and its bit
     length; raises unless 0 <= exponent < 2^256."""
@@ -161,27 +164,47 @@ def exponent_arg(exponent: int):
     return (ctypes.c_uint32 * 8)(*words), exponent.bit_length()
 
 
+def exponent_pieces(exponent: int) -> list[tuple[int, int]]:
+    """``mont_pow``'s launches for an exponent >= 0, as (piece, bits): one
+    for an exponent below 2^256 (itself, its bit length); above, the top
+    windows of the MSB-first chain as the first piece, then 256-bit pieces
+    (64 windows each, bits 256), so that each launch after the first
+    continues the chain from the accumulator of the one before."""
+    nwin = (exponent.bit_length() + POW_WINDOW - 1) // POW_WINDOW
+    later = max(0, nwin - 1) // POW_PIECE_WINDOWS
+    first = exponent >> (256 * later)
+    mask = (1 << 256) - 1
+    return [(first, first.bit_length())] + [((exponent >> (256 * j)) & mask, 256) for j in range(later - 1, -1, -1)]
+
+
 def mont_pow(a, exponent: int, spec: FieldSpec, even_odd: bool = True):
-    """a^exponent for a python-int exponent on (..., 16) int64 limbs.  CUDA
-    tensors make one launch of ``mont_pow`` (the whole chain, one thread per
-    element; ``even_odd`` picks its Montgomery product, ``fmul_eo`` or, for
-    chip_smoke.py's comparison, ``fmul``); CPU tensors take
+    """a^exponent for a python-int exponent >= 0 on (..., 16) int64 limbs.
+    CUDA tensors launch ``mont_pow`` once for an exponent below 2^256 (the
+    whole chain, one thread per element; ``even_odd`` picks its Montgomery
+    product, ``fmul_eo`` or, for chip_smoke.py's comparison, ``fmul``) and
+    once per piece of ``exponent_pieces`` above; CPU tensors take
     ``mont_pow_plain``.  Same limbs either way."""
     check_limbs("mont_pow", a)
     exponent = int(exponent)
-    words, bits = exponent_arg(exponent)
+    if exponent < 0:
+        raise ValueError(f"mont_pow: exponent must be >= 0, got {exponent}")
     if not use_kernel(a):
         return mont_pow_plain(a, exponent, spec)
     a = _aligned(a)
-    out = torch.empty_like(a)
     n = a.numel() // NLIMB
-    with torch.cuda.device(a.device):
-        code = _build.library().svtpu_mont_pow(
-            a.data_ptr(), out.data_ptr(), n, field_arg(spec), words, bits, int(even_odd), stream_of(a))
-    _build.check(code, "mont_pow")
-    if n:
-        mont_pow.launches += 1
-    return out
+    acc = None
+    for piece, bits in exponent_pieces(exponent):
+        words, _ = exponent_arg(piece)
+        out = torch.empty_like(a)
+        with torch.cuda.device(a.device):
+            code = _build.library().svtpu_mont_pow(
+                a.data_ptr(), None if acc is None else acc.data_ptr(), out.data_ptr(), n, field_arg(spec),
+                words, bits, int(even_odd), stream_of(a))
+        _build.check(code, "mont_pow")
+        if n:
+            mont_pow.launches += 1
+        acc = out
+    return acc
 
 
 mont_pow.launches = 0

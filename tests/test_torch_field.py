@@ -122,7 +122,8 @@ def test_pow_inv_match_jax(specs):
 
 
 POW_EXPONENTS = {"0": lambda m: 0, "1": lambda m: 1, "256": lambda m: 256, "p-2": lambda m: m - 2,
-                 "(p+1)/4": lambda m: (m + 1) // 4}
+                 "(p+1)/4": lambda m: (m + 1) // 4, "2^256+7": lambda m: (1 << 256) + 7,
+                 "2^300+5": lambda m: (1 << 300) + 5}
 
 
 @pytest.mark.parametrize("name", list(POW_EXPONENTS))
@@ -151,13 +152,23 @@ def test_pow_const_and_inv_match_jax_and_ints(specs, name):
 
 
 def test_mont_pow_validates_its_exponent():
+    """Only a negative exponent (or a bad limb shape) raises; an exponent of
+    2^256 and above takes the plain chain on the CPU, as the JAX package's
+    pow_const takes any exponent, and its kernel route splits it into
+    256-bit pieces of the same chain."""
     a = limbs_to_tensor(F.FR.encode([3]), "cpu")
-    for bad in (-1, 1 << 256):
-        with pytest.raises(ValueError):
-            FK.mont_pow(a, bad, F.FR)
+    with pytest.raises(ValueError):
+        FK.mont_pow(a, -1, F.FR)
     with pytest.raises(ValueError):
         FK.mont_pow(a[..., :8], 3, F.FR)
     assert torch.equal(FK.mont_pow(a, (1 << 256) - 1, F.FR), FK.mont_pow_plain(a, (1 << 256) - 1, F.FR))
+    e = 1 << 256
+    got = FK.mont_pow(a, e, F.FR)
+    assert torch.equal(got, FK.mont_pow_plain(a, e, F.FR))
+    assert list(F.FR.decode(got)) == [pow(3, e, F.FR.modulus)]
+    assert FK.exponent_pieces((1 << 256) - 1) == [((1 << 256) - 1, 256)]  # one launch below 2^256
+    assert FK.exponent_pieces(e) == [(1, 1), (0, 256)]
+    assert FK.exponent_pieces((1 << 300) + 5) == [(1 << 44, 45), (5, 256)]
 
 
 def _fmul_eo_words(a, b, p, n0):

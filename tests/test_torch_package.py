@@ -164,7 +164,7 @@ def test_build_command_targets_the_ignored_build_dir():
     assert all((_build.CSRC_DIR / s).exists() for s in _build.KERNEL_SOURCES + _build.HEADERS)
     assert set(_build.SIGNATURES) >= {
         "svtpu_g1_add_select", "svtpu_horner_combine", "svtpu_fq12_mul", "svtpu_msm_window", "svtpu_msm_horner",
-        "svtpu_miller_loop", "svtpu_final_exp", "svtpu_mont_pow",
+        "svtpu_miller_loop", "svtpu_final_exp", "svtpu_mont_pow", "svtpu_g1_add_lanes",
     }
     assert len(_build.source_hash()) == 16
 
