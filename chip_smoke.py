@@ -35,12 +35,19 @@ of both its accumulators) and config 4's aggregation fold:
    per launch by schedule (8 lanes, or one thread: the kernels before this
    design) and block size, the host's enqueue per call against the old
    wrapper's, and the chain of one add (one add's launch less an empty
-   one);
+   one); K3 (a doubling on a group of 4 lanes) at 32760, 8192, 288 and 32
+   doublings on affine and projective points with identities among them,
+   at both group widths (4, 8) and on one thread (the kernel before this
+   design), bit for bit, and their device time per launch in mirrored
+   turns, and one doubling's chain; K8 (a proof's window sum on a group
+   of 8 lanes) and its one-thread kernel at config 1's shape (B = 1820,
+   n = 18) and the outer snark's (below), also with forced first digits
+   (negative, zero, +-8), and their device time per launch in turns;
 4. slice: 1820 proofs (4 unique ones tiled, 2 rows with a corrupted
    commitment, 1 row with a wrong instance) from the data-file fixture;
    accumulators equal the native verifier's, ``ok`` False exactly on the
    corrupted rows, K1-K4 and ``mont_pow`` launched by the run (at most 230
-   K1 launches, 6 K2 launches), and the host pairing oracle decides a good and the
+   K1 launches, 6 K2 and 8 K3 launches), and the host pairing oracle decides a good and the
    wrong-instance accumulator; warm time, proofs/s, peak memory, and a
    torch.profiler breakdown of one warm verify;
 5. SHPLONK through the same code at 64 proofs;
@@ -66,7 +73,8 @@ of both its accumulators) and config 4's aggregation fold:
    both accumulators decided per proof) with ``MEGA`` on (K4) and off
    (K8/K9): both accumulators equal the native verifier's, ``ok`` all True,
    a mutated proof byte and a flipped instance limb clear it, the two runs
-   agree; warm times, and a profile of the ``MEGA``-off run; then K8 and K9
+   agree, 8 K3 launches in each and 128 of K8 and of K9 with ``MEGA`` off;
+   warm times, and a profile of the ``MEGA``-off run; then K8 and K9
    against their plain versions, and K4 against its plain version and
    K8/K9, bit for bit, on the inputs of that run's first two-kernel MSM (the
    kernels line reports K8/K9's times and bounds at this shape);
@@ -105,6 +113,7 @@ SHPLONK_BATCH = 64
 DECIDE_PROOFS = 8  # build_verifier(decide_dk=...) batch
 MSM_POOL = 64  # distinct points of the large MSM, tiled
 WINDOW_DBLS = 4  # doublings per window of K4 (4-bit windows)
+NWINDOWS = 64  # signed 4-bit windows of a scalar (K4's Horner steps)
 MSM_CASES = ((16, 8, False), (20, 11, True))  # large MSM: (log2 points, window, signed)
 KERNELS = {  # name -> (source, TPU kernel replaced)
     "mont_mul": ("snark_verifier_tpu_torch/csrc/field.cu", "snark_verifier_tpu/ops/field_pallas.py:270"),
@@ -137,6 +146,14 @@ DECIDE_MAX_K1, DECIDE_MAX_POW, VERIFY_MAX_K1 = 16, 2, 230  # launch ceilings on 
 ADD_WIDTHS = (32768, 32760, 16384, 8192, 4096, 1024, 32)
 DECIDE_ADD_LAUNCHES = {"g1_add_select": 62, "g1_add": 34}
 VERIFY_ADD_LAUNCHES = {"g1_add": 6}
+# K3: the widths of its launches (the verify's table build 32760 = 1820 x 18,
+# the outer snark's 288 = 8 x 36) and two between; its launches per verify
+# and per outer snark (4 per small MSM's table), and K8's and K9's on the
+# outer snark with MEGA off (64 each per small MSM)
+DBL_WIDTHS = (32760, 8192, 288, 32)
+VERIFY_DBL_LAUNCHES = AGG_DBL_LAUNCHES = 8
+AGG_WINDOW_LAUNCHES = 128
+WINDOW_FIRST_DIGITS = (-1, -8, 0, 8, -3, 5, -5, 1)  # K8's forced first digits, proof b takes entry b % 8
 BIG_EXPONENTS = ((1 << 256) + 7, (1 << 300) + 5)  # mont_pow above 2^256: a few launches over 256-bit pieces
 AGG_BATCH = 8  # the outer snark tiled, as tools/verify_aggregation_onchip.py
 FLIPPED_LIMB = 3  # instance limb flipped in the aggregation phase (old accumulator's lhs x, top limb)
@@ -347,6 +364,7 @@ def phase_kernels(torch, dev, rng):
         results[name] = {"max_abs_err": max(errs[name]), "ms": ms, "plain_ms": plain_ms,
                          **bound((3 * len(args) + 3) * n_pts * FE_BYTES, ops * n_pts)}
         log(f"kernel {name} ({n_pts} points): equal to plain; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    results["g1_double"]["lanes"] = phase_kernels_double(torch, p, r, results)
 
     # K4 msm_scan at B = 1820, n = 18, all 64 windows, with zero and one scalars
     scal = [rng.randrange(bn254.R) for _ in range(n_pts)]
@@ -370,12 +388,119 @@ def phase_kernels(torch, dev, rng):
     results["msm_scan"] = {"max_abs_err": max_abs_err(torch, got, want), "ms": ms, "plain_ms": plain_ms,
                            **bound((table.numel() // 16 + B * N_TERMS + 3 * B) * FE_BYTES,
                                    B * scan_mont_products(N_TERMS, digits.shape[-1])),
-                           "proofs_per_block": ppb, "grid": grid}
+                           "proofs_per_block": ppb, "grid": grid, **scan_chain(torch, table, digits)}
     log(f"kernel msm_scan (B={B}, n={N_TERMS}, 64 windows): equal to plain, to msm_windowed (K8/K9) and to the "
         f"oracle; kernel {ms:.4f} ms ({ppb} proofs per block, {grid} blocks on {sms} SMs), plain {plain_ms:.4f} ms, "
-        f"bound {results['msm_scan']['bound_ms']:.6f} ms ({results['msm_scan']['bound_by']})")
+        f"bound {results['msm_scan']['bound_ms']:.6f} ms ({results['msm_scan']['bound_by']}), one proof's chain "
+        f"{results['msm_scan']['chain_ms']:.6f} ms")
     results["msm_scan"]["sweep_ms"], results["msm_scan"]["geometry"] = scan_sweep(torch, table, digits, want)
     return results, (table, digits, got, scal, ps)
+
+
+def one_item_chain(torch, fn, reps: int = 50) -> dict:
+    """The chain of one item of a kernel's work: ``fn``'s launch on one item
+    less an empty launch, both by ``device_ms``, in turns (empty, one, one,
+    empty).  Returns both means and their difference, ``chain_ms``."""
+    turns = [(kind, device_ms(torch, (lambda: torch.cuda._sleep(0)) if kind == "empty" else fn, reps=reps))
+             for kind in ("empty", "one", "one", "empty")]
+    one = {k: statistics.mean(t for j, t in turns if j == k) for k in ("empty", "one")}
+    return {"one_item_ms": one["one"], "empty_ms": one["empty"], "chain_ms": one["one"] - one["empty"]}
+
+
+def phase_kernels_double(torch, p, r, results_field):
+    """K3, one doubling on a group of 4 lanes, against its plain version bit
+    for bit at every width of ``DBL_WIDTHS``, on affine points (the identity
+    in row 0) and projective ones (P + Q, P + P, and P + (-P) and P + O
+    among the first rows), beside the one-thread kernel it had before; then
+    device ms per launch at each width, the two schedules in mirrored
+    turns, and the chain of one doubling (``one_item_chain``)."""
+    from snark_verifier_tpu_torch.ops import curve as C
+    from snark_verifier_tpu_torch.ops import curve_cuda as CK
+
+    scheds = CK.SCHEDULES  # ("lanes", "thread")
+    for n in DBL_WIDTHS:
+        for kind, pt in (("affine", p), ("projective", r)):
+            cut = C.G1(*(c[:n] for c in pt))
+            require(bool((cut.z == 0).all(-1).any()), f"g1_double n={n} {kind}: no identity (z = 0) among the inputs")
+            want = CK.g1_double_plain(cut)
+            for sched in scheds:
+                got, _ = CK.double_points(cut, sched)
+                require(all(torch.equal(g, w) for g, w in zip(got, want)), f"g1_double n={n} {kind} {sched}: != plain")
+            require(all(torch.equal(g, w) for g, w in zip(CK.g1_double(cut), want)),
+                    f"g1_double n={n} {kind}: != plain")
+    torch.cuda.synchronize()
+    log(f"kernel g1_double (lanes): equal to plain at widths {DBL_WIDTHS} on affine and projective points with "
+        f"identities among them, on {CK.DBL_GROUP} lanes and on one thread")
+
+    latency = results_field["mont_pow"]["product_latency_ms"]
+    out = {}
+    order = [*reversed(scheds), *scheds]  # mirrored turns: thread, lanes, lanes, thread
+    for n in DBL_WIDTHS:
+        cut = C.G1(*(c[:n] for c in r))
+        turns = [(sched, device_ms(torch, lambda sched=sched: CK.double_points(cut, sched), reps=50)) for sched in order]
+        per = {sched: statistics.mean(t for k, t in turns if k == sched) for sched in scheds}
+        b = bound(6 * n * FE_BYTES, MONT_PER["double"] * n)
+        out[n] = {"device_ms": per, "turns_ms": turns, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
+        log(f"kernel g1_double n={n}: device ms per launch by schedule { {k: round(v, 6) for k, v in per.items()} } "
+            f"(turns {[(k, round(t, 6)) for k, t in turns]}); bound {b['bound_ms']:.6f} ms ({b['bound_by']})")
+    one_p = C.G1(*(c[:1] for c in r))
+    chain = {sched: one_item_chain(torch, lambda sched=sched: CK.double_points(one_p, sched)) for sched in scheds}
+    log(f"kernel g1_double: one doubling's launch less an empty launch {chain} ms (device_ms, in turns); products "
+        f"alone 2 x fmul_eo {2 * latency['fmul_eo']:.6f} ms, 8 x fmul {8 * latency['fmul']:.6f} ms")
+    return {"by_width": out, "group_lanes": CK.DBL_GROUP, "block": CK.DBL_BLOCK, "one_double": chain,
+            "critical_path_ms": chain[scheds[0]]["chain_ms"], "critical_path_thread_ms": chain["thread"]["chain_ms"],
+            "products_on_chain_ms": 2 * latency["fmul_eo"], "products_on_chain_thread_ms": 8 * latency["fmul"]}
+
+
+def window_cases(torch, table, dig_w, where: str) -> float:
+    """K8 against ``msm_window_plain``, bit for bit, on one window's digits
+    and on a copy whose first digits are ``WINDOW_FIRST_DIGITS`` (negative,
+    zero and +-8 first digits); returns the largest |kernel - plain|."""
+    from snark_verifier_tpu_torch.ops import msm_cuda as MK
+
+    batch = dig_w.shape[0]
+    forced = dig_w.clone()
+    firsts = torch.tensor(WINDOW_FIRST_DIGITS, device=dig_w.device)
+    forced[:, 0] = firsts[torch.arange(batch, device=dig_w.device) % len(WINDOW_FIRST_DIGITS)]
+    require(bool((forced == 0).any() and (forced < 0).any() and (forced[:, 0] < 0).any()),
+            f"msm_window ({where}): the digits need zero, negative and negative first entries")
+    err = 0.0
+    for case, dig in (("window", dig_w), ("forced first digits", forced)):
+        want = MK.msm_window_plain(table, dig)
+        got = MK.msm_window(table, dig)
+        torch.cuda.synchronize()
+        require(all(torch.equal(g, w) for g, w in zip(got, want)), f"msm_window ({where}, {case}): kernel != plain")
+        err = max(err, max_abs_err(torch, got, want))
+    return err
+
+
+def window_turns(torch, table, dig_w) -> dict:
+    """K8's device ms per launch (``device_ms``), and its chain: one proof's
+    launch less an empty launch (``one_item_chain``)."""
+    from snark_verifier_tpu_torch.ops import msm_cuda as MK
+
+    one_table, one_dig = table[:, :, :, :1].contiguous(), dig_w[:1].contiguous()
+    return {"device_ms": device_ms(torch, lambda: MK.msm_window(table, dig_w), reps=50),
+            **one_item_chain(torch, lambda: MK.msm_window(one_table, one_dig))}
+
+
+def horner_chain(torch, acc, contrib) -> dict:
+    """K9's chain: one proof's Horner step (4 doublings and an add onto a
+    projective accumulator) less an empty launch (``one_item_chain``)."""
+    from snark_verifier_tpu_torch.ops import curve as C
+    from snark_verifier_tpu_torch.ops import msm_cuda as MK
+
+    one_acc, one_c = (C.G1(*(t[:1].contiguous() for t in g)) for g in (acc, contrib))
+    return one_item_chain(torch, lambda: MK.msm_horner(one_acc, one_c))
+
+
+def scan_chain(torch, table, digits) -> dict:
+    """K4's chain: one proof's whole MSM (its n - 1 adds per window, then
+    64 Horner steps) less an empty launch (``one_item_chain``)."""
+    from snark_verifier_tpu_torch.ops import msm_cuda as MK
+
+    one_table, one_dig = table[:, :, :, :1].contiguous(), digits[:1].contiguous()
+    return one_item_chain(torch, lambda: MK.msm_scan(one_table, one_dig), reps=10)
 
 
 def phase_kernels_field(torch, dev, rng):
@@ -536,20 +661,21 @@ def phase_kernels_windowed(torch, dev, msm_case):
     results = {}
     w = 31  # a middle window: digits spread over [-8, 8]
     dig_w, dig_next = digits[..., w].contiguous(), digits[..., w + 1].contiguous()
+    err = window_cases(torch, table, dig_w, f"B={B}, n={N_TERMS}")
     got, want = MK.msm_window(table, dig_w), MK.msm_window_plain(table, dig_w)
-    torch.cuda.synchronize()
-    require(all(torch.equal(g, x) for g, x in zip(got, want)), "msm_window: kernel != plain")
     dl = dig_w.tolist()
     for row in range(3):
         want_aff = bn254.g1_msm([d % bn254.R for d in dl[row]], ps[row * N_TERMS:(row + 1) * N_TERMS])
         require(C.g1_to_affine_ints(C.G1(*(c[row:row + 1] for c in got))) == [want_aff], "msm_window: kernel != oracle")
     ms, plain_ms = cuda_ms(torch, lambda: MK.msm_window(table, dig_w)), cuda_ms(torch, lambda: MK.msm_window_plain(table, dig_w))
     # the entries the digits select (3 coordinates each), the digits (half a byte), the outputs
-    results["msm_window"] = {"max_abs_err": max_abs_err(torch, got, want), "ms": ms, "plain_ms": plain_ms,
+    results["msm_window"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                              **bound((3 * B * N_TERMS + 3 * B) * FE_BYTES + B * N_TERMS // 2,
-                                     (N_TERMS - 1) * MONT_PER["add"] * B)}
-    log(f"kernel msm_window (B={B}, n={N_TERMS}, window {w}): equal to plain and oracle; kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bound {results['msm_window']['bound_ms']:.6f} ms ({results['msm_window']['bound_by']})")
+                                     (N_TERMS - 1) * MONT_PER["add"] * B), **window_turns(torch, table, dig_w)}
+    log(f"kernel msm_window (B={B}, n={N_TERMS}, window {w}): equal to plain with forced first digits too, and to "
+        f"the oracle; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, device ms per launch "
+        f"{results['msm_window']['device_ms']:.6f}, one proof's chain {results['msm_window']['chain_ms']:.6f}, "
+        f"bound {results['msm_window']['bound_ms']:.6f} ms ({results['msm_window']['bound_by']})")
 
     acc = MK.msm_window(table, dig_next)  # a projective accumulator (z != 1)
     got, want = MK.msm_horner(acc, want), MK.msm_horner_plain(acc, want)
@@ -562,8 +688,10 @@ def phase_kernels_windowed(torch, dev, msm_case):
     ms = cuda_ms(torch, lambda: MK.msm_horner(acc, contrib))
     plain_ms = cuda_ms(torch, lambda: MK.msm_horner_plain(acc, contrib))
     results["msm_horner"] = {"max_abs_err": max_abs_err(torch, got, want), "ms": ms, "plain_ms": plain_ms,
-                             **bound(9 * B * FE_BYTES, (WINDOW_DBLS * MONT_PER["double"] + MONT_PER["add"]) * B)}
+                             **bound(9 * B * FE_BYTES, (WINDOW_DBLS * MONT_PER["double"] + MONT_PER["add"]) * B),
+                             **horner_chain(torch, acc, contrib)}
     log(f"kernel msm_horner (B={B}): equal to plain and oracle; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"one proof's chain {results['msm_horner']['chain_ms']:.6f} ms, "
         f"bound {results['msm_horner']['bound_ms']:.6f} ms ({results['msm_horner']['bound_by']})")
 
     # the whole two-kernel MSM (64 windows: 64 launches of each) against K4 and the oracle
@@ -1136,6 +1264,11 @@ def phase_aggregation(torch, dev, card):
             out, launches = count_launches(torch, lambda: fn(*args), required, absent)
             first_s = time.perf_counter() - t0
             MK.msm_windowed = windowed
+            require(launches["g1_double"] == AGG_DBL_LAUNCHES and
+                    (mega or launches["msm_window"] == launches["msm_horner"] == AGG_WINDOW_LAUNCHES),
+                    f"aggregation (MEGA {mega}): K3/K8/K9 launches "
+                    f"{[launches[k] for k in ('g1_double', 'msm_window', 'msm_horner')]}, not {AGG_DBL_LAUNCHES} and "
+                    f"{AGG_WINDOW_LAUNCHES} each of K8/K9 with MEGA off")
             require(tuple(out["lhs_x"].shape) == (2, AGG_BATCH, 16), "aggregation: outputs must be (2, B, 16)")
             for row in range(AGG_BATCH):
                 got = [decode_accumulator({k: v[a] for k, v in out.items() if k != "ok"}, row) for a in range(2)]
@@ -1182,22 +1315,23 @@ def phase_kernels_on_path(torch, table, digits):
     two_ms = cuda_ms(torch, lambda: MK.msm_windowed(table, digits))
     scan = {"max_abs_err": max_abs_err(torch, got, want), "ms": ms, "plain_ms": plain_ms, "shape": {"B": batch, "n": n},
             "two_kernel_msm_ms": two_ms, **bound((table.numel() // 16 + batch * n + 3 * batch) * FE_BYTES,
-                                                 batch * scan_mont_products(n, digits.shape[-1]))}
+                                                 batch * scan_mont_products(n, digits.shape[-1])),
+            **scan_chain(torch, table, digits)}
     log(f"kernel msm_scan (outer snark's MSM: B={batch}, n={n}): equal to plain and to msm_windowed (K8/K9); "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {scan['bound_ms']:.6f} ms ({scan['bound_by']}); "
         f"the two-kernel MSM {two_ms:.4f} ms ({two_ms / ms:.2f}x)")
     w = MK.NWINDOWS // 2 - 1
     dig_w, dig_next = digits[..., w].contiguous(), digits[..., w + 1].contiguous()
-    contrib, want = MK.msm_window(table, dig_w), MK.msm_window_plain(table, dig_w)
-    torch.cuda.synchronize()
-    require(all(torch.equal(g, x) for g, x in zip(contrib, want)), "msm_window (outer snark's shape): kernel != plain")
-    err = max_abs_err(torch, contrib, want)
+    err = window_cases(torch, table, dig_w, f"outer snark's MSM: B={batch}, n={n}")
+    contrib = MK.msm_window(table, dig_w)
     ms, plain_ms = cuda_ms(torch, lambda: MK.msm_window(table, dig_w)), cuda_ms(torch, lambda: MK.msm_window_plain(table, dig_w))
     results = {"msm_window": {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "shape": {"B": batch, "n": n},
                               **bound((3 * batch * n + 3 * batch) * FE_BYTES + batch * n // 2,
-                                      (n - 1) * MONT_PER["add"] * batch)}}
-    log(f"kernel msm_window (outer snark's MSM: B={batch}, n={n}, window {w}): equal to plain; kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bound {results['msm_window']['bound_ms']:.6f} ms ({results['msm_window']['bound_by']})")
+                                      (n - 1) * MONT_PER["add"] * batch), **window_turns(torch, table, dig_w)}}
+    log(f"kernel msm_window (outer snark's MSM: B={batch}, n={n}, window {w}): equal to plain with forced first "
+        f"digits too; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, device ms per launch "
+        f"{results['msm_window']['device_ms']:.6f}, one proof's chain {results['msm_window']['chain_ms']:.6f}, "
+        f"bound {results['msm_window']['bound_ms']:.6f} ms ({results['msm_window']['bound_by']})")
 
     acc = MK.msm_window(table, dig_next)  # a projective accumulator (z != 1)
     errs = []
@@ -1208,9 +1342,11 @@ def phase_kernels_on_path(torch, table, digits):
         errs.append(max_abs_err(torch, got, want))
     ms, plain_ms = cuda_ms(torch, lambda: MK.msm_horner(acc, contrib)), cuda_ms(torch, lambda: MK.msm_horner_plain(acc, contrib))
     results["msm_horner"] = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "shape": {"B": batch},
-                             **bound(9 * batch * FE_BYTES, (WINDOW_DBLS * MONT_PER["double"] + MONT_PER["add"]) * batch)}
+                             **bound(9 * batch * FE_BYTES, (WINDOW_DBLS * MONT_PER["double"] + MONT_PER["add"]) * batch),
+                             **horner_chain(torch, acc, contrib)}
     log(f"kernel msm_horner (outer snark's MSM: B={batch}, from the identity and from a projective accumulator): "
-        f"equal to plain; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"equal to plain; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, one proof's chain "
+        f"{results['msm_horner']['chain_ms']:.6f} ms, "
         f"bound {results['msm_horner']['bound_ms']:.6f} ms ({results['msm_horner']['bound_by']})")
     return results, scan
 
@@ -1287,6 +1423,8 @@ def phase_slice(torch, dev, card):
     require(launches["mont_mul"] <= VERIFY_MAX_K1, f"slice: {launches['mont_mul']} K1 launches, above {VERIFY_MAX_K1}")
     require(all(launches[k] == v for k, v in VERIFY_ADD_LAUNCHES.items()),
             f"slice: K2 launches {launches['g1_add']}, not {VERIFY_ADD_LAUNCHES['g1_add']}")
+    require(launches["g1_double"] == VERIFY_DBL_LAUNCHES,
+            f"slice: K3 launches {launches['g1_double']}, not {VERIFY_DBL_LAUNCHES}")
     ADD_PATH_WIDTHS["verify"] = widths
 
     for key in ("lhs_x", "lhs_y", "rhs_x", "rhs_y"):
@@ -1572,6 +1710,27 @@ def add_path_totals(name: str, floor) -> dict:
     return totals
 
 
+def critical_paths(results) -> None:
+    """Each kernel's critical path, as this run measured it: one item's
+    launch less an empty launch (``one_item_chain``): one doubling for K3
+    (on lanes), one proof for K8, K9 and K4 at each shape.  K8's products
+    alone (2 (n - 1) levels of fmul_eo) stand beside it."""
+    lat = results["mont_pow"]["product_latency_ms"]
+    window, horner, scan = results["msm_window"], results["msm_horner"], results["msm_scan"]
+    for row, n in ((window, window["shape"]["n"]), (window["at_config1_shape"], window["at_config1_shape"]["n"])):
+        row["products_on_chain_ms"] = 2 * (n - 1) * lat["fmul_eo"]
+    for row in (window, window["at_config1_shape"], horner, horner["at_config1_shape"], scan,
+                scan["at_outer_snark_shape"]):
+        row["critical_path_ms"] = row["chain_ms"]
+    results["g1_double"]["critical_path_ms"] = results["g1_double"]["lanes"]["critical_path_ms"]
+    log(f"critical paths (one item's launch less an empty launch): K8 {window['chain_ms']:.6f} ms at "
+        f"n={window['shape']['n']} (products alone {window['products_on_chain_ms']:.6f}), "
+        f"{window['at_config1_shape']['chain_ms']:.6f} at n={N_TERMS}; K9 {horner['chain_ms']:.6f} ms "
+        f"({horner['at_config1_shape']['chain_ms']:.6f} in the config-1 phase); K4 {scan['chain_ms']:.6f} ms at "
+        f"n={N_TERMS} ({scan['at_outer_snark_shape']['chain_ms']:.6f} at "
+        f"n={scan['at_outer_snark_shape']['shape']['n']}); K3 {results['g1_double']['critical_path_ms']:.6f} ms")
+
+
 def main() -> int:
     import torch
 
@@ -1623,8 +1782,10 @@ def main() -> int:
     for name, res in on_path.items():  # the path's shape first, config 1's shape beside it
         results[name] = {**res, "at_config1_shape": {"B": B, "n": N_TERMS, **config1_windowed[name]}}
     results["msm_scan"]["at_outer_snark_shape"] = {
-        k: scan_on_path[k] for k in ("shape", "ms", "plain_ms", "two_kernel_msm_ms", "bound_ms", "bound_by")}
+        k: scan_on_path[k] for k in ("shape", "ms", "plain_ms", "two_kernel_msm_ms", "bound_ms", "bound_by",
+                                     "one_item_ms", "empty_ms", "chain_ms")}
     done("aggregation")
+    critical_paths(results)
     phase_config4(torch, dev, smi)
     done("config 4")
     require("jax" not in sys.modules, "the port must not import jax")

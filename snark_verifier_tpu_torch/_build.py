@@ -38,7 +38,7 @@ SIGNATURES = {
     "svtpu_mont_mul": [_P, _P, _P, _I64, _P, _INT, _P],
     "svtpu_mont_pow": [_P, _P, _P, _I64, _P, _P, _INT, _INT, _P],
     "svtpu_g1_add": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P, _INT, _P],
-    "svtpu_g1_double": [_P, _P, _P, _P, _P, _P, _I64, _P, _INT, _P],
+    "svtpu_g1_double": [_P, _P, _P, _P, _P, _P, _I64, _P, _INT, _INT, _P],
     "svtpu_msm_scan": [_P, _P, _P, _P, _P, _I64, _INT, _INT, _INT, _P, _P],
     "svtpu_g1_add_select": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P, _INT, _P],
     "svtpu_g1_add_lanes": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _P, _INT, _P],

@@ -172,7 +172,7 @@ __device__ __forceinline__ Fe fmul(const Fe& a, const Fe& b, const Field& f) {
   return (t[NW] || !borrow) ? d : r;
 }
 
-// ---- Montgomery product with two carry chains (K1's mont_pow and K6 only) --
+// ---- Montgomery product with two carry chains (mont_pow, K2, K3, K5, K6, K8) -
 
 // acc[0..7] += the 8 words of the products x0..x3 * y placed at word pairs
 // (0,1) (2,3) (4,5) (6,7), and top += the carry out: one carry chain of
@@ -228,7 +228,7 @@ __device__ __forceinline__ void merge_mad_chain(uint32_t& e0, uint32_t* f, uint3
 // any a, b < 2^256, not only reduced ones.  A word-level simulation of this
 // schedule is held against (a b + m p) / 2^256 in tests/test_torch_field.py.
 // Inside mont_pow on an H100 SXM (700 W) a product takes 0.43 us against
-// fmul's 0.59 (chip_smoke.py).  The other kernels keep fmul for now.
+// fmul's 0.59 (chip_smoke.py).  K4, K7 and K9 keep fmul.
 __device__ __forceinline__ Fe fmul_eo(const Fe& a, const Fe& b, const Field& f) {
   uint32_t E[NW], F[NW + 1], e8 = 0, f9 = 0;
 #pragma unroll
@@ -384,6 +384,14 @@ __device__ __forceinline__ Fe fe_sel(bool c, const Fe& a, const Fe& b) {
   return r;
 }
 
+// Word j of a, as a select chain: no register array is indexed at run time.
+__device__ __forceinline__ uint32_t fe_word(const Fe& a, int j) {
+  uint32_t r = a.w[0];
+#pragma unroll
+  for (int k = 1; k < NW; ++k) r = j == k ? a.w[k] : r;
+  return r;
+}
+
 // RCB15 alg. 7 (g1_add's operations and operands) on the G lanes of one
 // group, lane k of it (G a power of two from 8 to 32; every lane of the
 // warp runs this, `sync` names them).  On entry s[0..2] hold p and s[3..5]
@@ -443,6 +451,59 @@ __device__ __forceinline__ G1 g1_add_group(Fe* s, int k, unsigned sync, const Fi
   r.x = fsub(lds_fe(s + 6), lds_fe(s + 7), f);
   r.y = fadd(lds_fe(s + 8), lds_fe(s + 9), f);
   r.z = fadd(lds_fe(s + 10), lds_fe(s + 11), f);
+  return r;
+}
+
+// ---- one complete doubling on a group of lanes (K3) ------------------------
+
+// Fe slots of one doubling group: p (0-2), level 1's products a, b, c, d
+// (3-6), level 2's operands t2, z3, y3, e (7-10), level 2's products (11-14).
+constexpr int DBL_SLOTS = 15;
+constexpr int DBL_GROUP = 4;  // lanes per doubling: one product of each level a lane
+
+// RCB15 alg. 9 (g1_double's operations and operands) on the DBL_GROUP lanes
+// of one group, lane k of it (every lane of the warp runs this, `sync`
+// names them).  On entry s[0..2] hold p; every lane returns 2 p.  Its 8
+// products run as two levels of four independent products, one a lane,
+// with fmul_eo: level 1 {y y, y z, z z, x y} = {a, b, c, d}, level 2 {t2 z3,
+// b z3, e y3, e d}.  The modular adds between the levels are split over the
+// lanes by role, in lockstep on operands selected by the lane: lane 0 forms
+// z3 = 8 a, lane 1 t2 = 9 c, lane 2 y3 = a + t2, lane 3 e = a - 3 t2, and
+// writes it; the longest chain, e's, is 7 adds and a sub.  After level 2
+// every lane forms x3 = 2 (e d), y3 = e y3 + t2 z3, z3 = b z3.  The output
+// equals g1_double's bit for bit for any inputs below 2^256, since fmul_eo
+// gives fmul's integer and a modular add's result depends only on the sum.
+__device__ __forceinline__ G1 g1_double_group(Fe* s, int k, unsigned sync, const Field& f) {
+  // level 1: lanes 0-3 multiply slots (1, 1), (1, 2), (2, 2), (0, 1)
+  const int ia = k == 2 ? 2 : (k == 3 ? 0 : 1);
+  const int ib = k == 1 || k == 2 ? 2 : 1;
+  Fe prod = fmul_eo(lds_fe(s + ia), lds_fe(s + ib), f);
+  sts_fe(s + 3 + k, prod);
+  __syncwarp(sync);
+  const Fe a = lds_fe(s + 3), c = lds_fe(s + 5);
+  Fe w = fe_sel(k == 0, a, c);
+  w = fadd(w, w, f);  // 2 a, 2 c
+  w = fadd(w, w, f);  // 4 a, 4 c
+  w = fadd(w, w, f);  // 8 a = z3, 8 c
+  if (k == 0) sts_fe(s + 8, w);
+  const Fe t2 = fadd(w, c, f);  // 9 c = t2
+  if (k == 1) sts_fe(s + 7, t2);
+  const Fe v = fadd(t2, fe_sel(k == 3, t2, a), f);  // y3 = a + t2; 2 t2
+  if (k == 2) sts_fe(s + 9, v);
+  const Fe e = fsub(a, fadd(v, t2, f), f);  // e = a - 3 t2
+  if (k == 3) sts_fe(s + 10, e);
+  // level 2: lanes 0-3 multiply slots (7, 8), (4, 8), (10, 9), (10, 6)
+  const int ra = k == 0 ? 7 : (k == 1 ? 4 : 10);
+  const int rb = k == 2 ? 9 : (k == 3 ? 6 : 8);
+  __syncwarp(sync);
+  prod = fmul_eo(lds_fe(s + ra), lds_fe(s + rb), f);
+  sts_fe(s + 11 + k, prod);
+  __syncwarp(sync);
+  const Fe ed = lds_fe(s + 14);
+  G1 r;
+  r.x = fadd(ed, ed, f);
+  r.y = fadd(lds_fe(s + 13), lds_fe(s + 11), f);
+  r.z = lds_fe(s + 12);
   return r;
 }
 

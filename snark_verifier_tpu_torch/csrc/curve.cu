@@ -5,7 +5,7 @@
 // Replace snark_verifier_tpu/ops/curve_pallas.py _add_kernel and _dbl_kernel
 // (reached through g1_add_pallas / g1_add_t and g1_double_pallas /
 // g1_double_t; msm_pallas.py builds the MSM tables with them).  The TPU
-// kernels fuse the 12 (add) or 6 (double) Montgomery multiplies on (16, 512)
+// kernels fuse the 12 (add) or 8 (double) Montgomery multiplies on (16, 512)
 // VMEM blocks.
 //
 // K5 replaces curve_pallas.py _add_select_kernel (g1_add_select_pallas and
@@ -52,12 +52,31 @@
 // reach the kernel without a copy.  The output equals the one-thread
 // kernels' limb for limb: the same operations on the same operands, and
 // fmul_eo gives fmul's integer.
+//
+// K3 (the doubling, RCB15 alg. 9: 8 products, ~14 modular adds) is bound
+// the same way: by operations 4.1 us at the verify's 32,760 doublings, far
+// from the bandwidth bound, and with one thread per doubling (76 registers,
+// 8 fmul and the limbs' device loads on the thread's chain, ~7.8 warps per
+// SM at 32,760) a launch took 19-25 us.  So one doubling runs on a group of
+// DBL_GROUP = 4 lanes (bn254.cuh g1_double_group), K2's schedule: the group
+// loads the point once into 15 slots of shared memory with 16-byte loads,
+// lane k the limb pairs k and k + 4; the 8 products run as two levels of
+// four independent fmul_eo products, one a lane, exchanged through the
+// slots under __syncwarp; the adds between the levels are split over the 4
+// lanes by role (z3 = 8 a, t2 = 9 c, y3 = a + t2, e = a - 3 t2), the
+// longest chain 8 operations; lane k stores its limb pairs.  Four lanes
+// keep every lane multiplying.  On an H100 SXM (700 W, chip_smoke.py) a
+// launch takes 10.0 us at 32,760 doublings against 24.8 on one thread (a
+// group of 8, lanes 4-7 repeating 0-3, took 15.6), 3.7 us at 288 and fewer
+// (8.9-11.8 on one thread); one doubling's chain is 1.6 us against 6.0.
+// The output equals the one-thread kernel's limb for limb.
 #include "bn254.cuh"
 
 namespace {
 
 constexpr int ADD_GROUP = 8;        // lanes per point add (K2, K5)
 constexpr int ADD_BLOCK_MAX = 256;  // the largest block the wrapper launches
+constexpr int DBL_BLOCK_MAX = 256;  // the largest K3 block
 
 // K2/K5's inputs: coordinate c of point i (x1, y1, z1, x2, y2, z2) starts
 // at c[c] + (i / inner) * s0[c] + (i % inner) * s1[c] (int64 elements, 16
@@ -86,14 +105,6 @@ __device__ __forceinline__ void store_point(int64_t* x, int64_t* y, int64_t* z, 
   svtpu::store_fe(x + 16 * i, p.x);
   svtpu::store_fe(y + 16 * i, p.y);
   svtpu::store_fe(z + 16 * i, p.z);
-}
-
-// Word j of a, as a select chain: no register array is indexed at run time.
-__device__ __forceinline__ uint32_t fe_word(const svtpu::Fe& a, int j) {
-  uint32_t r = a.w[0];
-#pragma unroll
-  for (int k = 1; k < svtpu::NW; ++k) r = j == k ? a.w[k] : r;
-  return r;
 }
 
 __device__ __forceinline__ void store_word(int64_t* dst, int64_t i, int k, uint32_t w) {
@@ -130,7 +141,7 @@ __device__ __forceinline__ void add_lanes(const AddOperands& a, int64_t* ox, int
   __syncwarp();
   const svtpu::G1 sum = svtpu::g1_add_group<ADD_GROUP>(s, k, 0xffffffffu, f);
   if (!live) return;
-  uint32_t x = fe_word(sum.x, k), y = fe_word(sum.y, k), z = fe_word(sum.z, k);
+  uint32_t x = svtpu::fe_word(sum.x, k), y = svtpu::fe_word(sum.y, k), z = svtpu::fe_word(sum.z, k);
   if (kSelect && !take) {  // p, still in slots 0-2
     x = words[k];
     y = words[svtpu::NW + k];
@@ -185,13 +196,54 @@ __global__ void g1_add_select_kernel_thread(const int64_t* __restrict__ x1,
   store_point(ox, oy, oz, i, mask[i] ? s : p);
 }
 
-__global__ void g1_double_kernel(const int64_t* __restrict__ x, const int64_t* __restrict__ y,
-                                 const int64_t* __restrict__ z, int64_t* __restrict__ ox,
-                                 int64_t* __restrict__ oy, int64_t* __restrict__ oz, int64_t n,
-                                 svtpu::Field f) {
+// The one-thread schedule K3 had before its redesign: svtpu::g1_double on
+// one thread.  Only chip_smoke.py launches it, to time the old schedule
+// beside the new one in one run.
+__global__ void g1_double_kernel_thread(const int64_t* __restrict__ x, const int64_t* __restrict__ y,
+                                        const int64_t* __restrict__ z, int64_t* __restrict__ ox,
+                                        int64_t* __restrict__ oy, int64_t* __restrict__ oz, int64_t n,
+                                        svtpu::Field f) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
   store_point(ox, oy, oz, i, svtpu::g1_double(load_point(x, y, z, i), f));
+}
+
+// K3 on groups of 4 lanes: point i = (block * blockDim + thread) / 4, lane
+// k = thread % 4 loads and stores limb pairs k and k + 4 of each coordinate
+// (contiguous inputs); a group past the end loads the last point and stores
+// nothing, so every lane of every warp reaches the __syncwarp()s.
+__global__ void __launch_bounds__(DBL_BLOCK_MAX)
+    g1_double_kernel(const int64_t* __restrict__ x, const int64_t* __restrict__ y, const int64_t* __restrict__ z,
+                     int64_t* __restrict__ ox, int64_t* __restrict__ oy, int64_t* __restrict__ oz, int64_t n,
+                     svtpu::Field f) {
+  extern __shared__ uint4 dbl_slots[];
+  constexpr int G = svtpu::DBL_GROUP;
+  const int t = threadIdx.x, k = t & (G - 1);
+  svtpu::Fe* s = reinterpret_cast<svtpu::Fe*>(dbl_slots) + (t / G) * svtpu::DBL_SLOTS;
+  uint32_t* words = reinterpret_cast<uint32_t*>(s);
+  const int64_t i = (static_cast<int64_t>(blockIdx.x) * blockDim.x + t) / G;
+  const bool live = i < n;
+  const int64_t li = live ? i : n - 1;
+  const int64_t* const src[3] = {x, y, z};
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+#pragma unroll
+    for (int h = 0; h < svtpu::NW / G; ++h) {
+      const int j = k + h * G;
+      const longlong2 v = reinterpret_cast<const longlong2*>(src[c] + 16 * li)[j];
+      words[c * svtpu::NW + j] = static_cast<uint32_t>(v.x) | (static_cast<uint32_t>(v.y) << 16);
+    }
+  }
+  __syncwarp();
+  const svtpu::G1 r = svtpu::g1_double_group(s, k, 0xffffffffu, f);
+  if (!live) return;
+#pragma unroll
+  for (int h = 0; h < svtpu::NW / G; ++h) {
+    const int j = k + h * G;
+    store_word(ox, i, j, svtpu::fe_word(r.x, j));
+    store_word(oy, i, j, svtpu::fe_word(r.y, j));
+    store_word(oz, i, j, svtpu::fe_word(r.z, j));
+  }
 }
 
 }  // namespace
@@ -246,15 +298,31 @@ extern "C" int svtpu_g1_add(const void* x1, const void* y1, const void* z1, cons
   return static_cast<int>(cudaGetLastError());
 }
 
+// K3 on groups of 4 lanes (lanes 1), `block` threads per block (a multiple
+// of 32 up to 256), on contiguous (n, 16) coordinates; lanes 0 launches the
+// one-thread kernel instead (chip_smoke.py's comparison).
 extern "C" int svtpu_g1_double(const void* x, const void* y, const void* z, void* ox, void* oy,
-                               void* oz, int64_t n, const void* field_words, int block,
+                               void* oz, int64_t n, const void* field_words, int lanes, int block,
                                void* stream) {
   if (n <= 0) return 0;
+  if (block <= 0 || block % 32 != 0 || block > DBL_BLOCK_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const svtpu::Field f = svtpu::field_from_host(static_cast<const uint32_t*>(field_words));
-  g1_double_kernel<<<svtpu::grid_for(n, block), block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int64_t*>(x), static_cast<const int64_t*>(y),
-      static_cast<const int64_t*>(z), static_cast<int64_t*>(ox), static_cast<int64_t*>(oy),
-      static_cast<int64_t*>(oz), n, f);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t* px = static_cast<const int64_t*>(x);
+  const int64_t* py = static_cast<const int64_t*>(y);
+  const int64_t* pz = static_cast<const int64_t*>(z);
+  int64_t* qx = static_cast<int64_t*>(ox);
+  int64_t* qy = static_cast<int64_t*>(oy);
+  int64_t* qz = static_cast<int64_t*>(oz);
+  if (lanes) {
+    const size_t smem = static_cast<size_t>(block / svtpu::DBL_GROUP) * svtpu::DBL_SLOTS * sizeof(svtpu::Fe);
+    g1_double_kernel<<<svtpu::grid_for(n * svtpu::DBL_GROUP, block), block, smem, s>>>(px, py, pz, qx, qy, qz, n,
+                                                                                        f);
+  } else {
+    g1_double_kernel_thread<<<svtpu::grid_for(n, block), block, 0, s>>>(px, py, pz, qx, qy, qz, n, f);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

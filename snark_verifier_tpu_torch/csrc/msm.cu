@@ -72,14 +72,28 @@
 // where d_i < 0), the first point's selection starting the sum (no add to the
 // identity), and K9 computes acc = 16 * acc + contrib (4 doublings, one
 // complete add; acc starts at the identity, so the first window runs through
-// K9 too).  One thread per proof, as K4.  Same operations in the same order
-// as the TPU kernels, so the triples match them limb for limb.
+// K9 too).  Same operations in the same order as the TPU kernels, so the
+// triples match them limb for limb.
 //
-// Bound on the H100: latency and launches.  K8 is a chain of n - 1 complete
-// adds per thread (17 at n = 18), K9 a chain of 5 point operations; at B =
-// 1820 a launch holds 57 warps, and an MSM is 64 launches of each, so the
-// launch floor (about 2 us) sets K9's time and the dispatch of 128 launches
-// per MSM adds to K8's.
+// Bound on the H100: latency.  K8 is a chain of n - 1 dependent complete
+// adds per proof (35 at the outer snark's n = 36, where B = 8 proofs gave a
+// launch 8 threads with one thread per proof), K9 a chain of 5 point
+// operations, and an MSM is 64 launches of each.  With one thread per proof
+// (K8's first schedule) each step loaded T_i[|d_i|] (384 bytes,
+// uncoalesced), negated its y and then ran 12 fmul on the thread: ~4.8 us
+// a step.  So K8 runs one proof on a group of 8 lanes: the accumulator
+// stays in the group's shared-memory slots and each step is one g1_add_group (bn254.cuh; K2's two levels of six
+// fmul_eo products on lanes), in the plain version's order, acc = sel_0,
+// then acc + sel_1, ... (no tree: the order keeps K8, and K4 beside it,
+// limb-equal to msm_window_plain).  The gather and the negation are off the
+// accumulator's chain: before step i's add the group starts the loads of
+// step i + 1's entry (lane k its 16-byte limb pair of each coordinate, 128
+// contiguous bytes a group) and of digit i + 2, and only after the add
+// negates that entry's y where d < 0 (word-parallel: each word's borrow
+// from the group's ballots, no carry chain) and writes it to the q slots.
+// On an H100 SXM (700 W, chip_smoke.py) a launch takes 0.069 ms at B = 8,
+// n = 36 (1.97 us a step) against 0.306 on one thread, and 0.035 against
+// 0.174 ms at B = 1820, n = 18.  K9 keeps one thread per proof.
 //
 // Layouts: table (9, 3, n, B, 16) int64 (entry k, coordinate, point, proof,
 // limb); digits (B, n, nwin) int64 signed windows in [-8, 8], least
@@ -313,27 +327,110 @@ __device__ __forceinline__ void store_g1(int64_t* x, int64_t* y, int64_t* z, int
   svtpu::store_fe(z + off, p.z);
 }
 
-// digits: (B, n) int64 signed digits of one window; outputs three (B, 16).
-__global__ void msm_window_kernel(const int64_t* __restrict__ table,
-                                  const int64_t* __restrict__ digits, int64_t* __restrict__ ox,
-                                  int64_t* __restrict__ oy, int64_t* __restrict__ oz,
-                                  int64_t batch, int npoints, svtpu::Field f) {
-  const int64_t b = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (b >= batch) return;
-  const int64_t coord_stride = static_cast<int64_t>(npoints) * batch * 16;
-  const int64_t entry_stride = 3 * coord_stride;
-  const int64_t* dig = digits + b * npoints;
+constexpr int WINDOW_GROUP = 8;       // K8's lanes per proof: one g1_add_group
+constexpr int WINDOW_BLOCK_MAX = 256;  // the largest K8 block
+constexpr unsigned FULL_WARP = 0xffffffffu;
 
-  svtpu::G1 acc;
-  for (int i = 0; i < npoints; ++i) {
-    const int64_t d = dig[i];
-    const int64_t k = d < 0 ? -d : d;
-    const int64_t* e = table + k * entry_stride + (static_cast<int64_t>(i) * batch + b) * 16;
-    svtpu::G1 pt = load_g1(e, e + coord_stride, e + 2 * coord_stride, 0);
-    if (d < 0) pt.y = svtpu::fsub(svtpu::fzero(), pt.y, f);
-    acc = i == 0 ? pt : svtpu::g1_add(acc, pt, f);
+// Word k of T_i[|d|] of proof b, for lane k of the proof's group: coordinate
+// c of entry |d| at table + ((|d| * 3 + c) * n + i) * B * 16 + b * 16 (the
+// (9, 3, n, B, 16) layout), limb pair k; 16 bytes a lane, 128 contiguous
+// bytes a group.  ops/msm_cuda.py window_entry_offset is the same map.
+__device__ __forceinline__ void load_entry(const int64_t* table, int64_t d, int i, int64_t b, int npoints,
+                                           int64_t batch, int k, uint32_t (&w)[3]) {
+  const int64_t coord_stride = static_cast<int64_t>(npoints) * batch * 16;
+  const int64_t* e = table + (d < 0 ? -d : d) * 3 * coord_stride + (static_cast<int64_t>(i) * batch + b) * 16;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const longlong2 v = reinterpret_cast<const longlong2*>(e + c * coord_stride)[k];
+    w[c] = static_cast<uint32_t>(v.x) | (static_cast<uint32_t>(v.y) << 16);
   }
-  store_g1(ox, oy, oz, 16 * b, acc);
+}
+
+// Word k of fsub(0, y) on the group of 8 lanes at warp lane `base`, lane k
+// holding word k of y and pk word k of p: (p - y) mod 2^256, each word's
+// borrow in resolved from the group's ballots of p_j < y_j (generate) and
+// p_j == y_j (propagate) as the carries of one integer add, or 0 where y ==
+// 0.  Every lane of the warp must call it.
+__device__ __forceinline__ uint32_t neg_word(uint32_t y, uint32_t pk, int k, int base) {
+  const unsigned gen = (__ballot_sync(FULL_WARP, pk < y) >> base) & 0xffu;
+  const unsigned prop = (__ballot_sync(FULL_WARP, pk == y) >> base) & 0xffu;
+  const unsigned nonzero = (__ballot_sync(FULL_WARP, y != 0u) >> base) & 0xffu;
+  const unsigned any = gen | prop;
+  const uint32_t borrow = (((any + gen) ^ any ^ gen) >> k) & 1u;
+  return nonzero ? pk - y - borrow : 0u;
+}
+
+__device__ __forceinline__ void put_words(uint32_t* words, int k, const uint32_t (&w)[3]) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c) words[c * svtpu::NW + k] = w[c];
+}
+
+// digits: (B, n) int64 signed digits of one window; outputs three (B, 16).
+// Proof b = (block * blockDim + thread) / 8, lane k = thread % 8; a group
+// past the end runs the last proof and stores nothing, so every lane of
+// every warp reaches the ballots and __syncwarp()s.  Slots 0-2 of the
+// group hold the accumulator, 3-5 the next selection.
+__global__ void __launch_bounds__(WINDOW_BLOCK_MAX)
+    msm_window_kernel(const int64_t* __restrict__ table, const int64_t* __restrict__ digits, int64_t* __restrict__ ox,
+                      int64_t* __restrict__ oy, int64_t* __restrict__ oz, int64_t batch, int npoints,
+                      svtpu::Field f) {
+  extern __shared__ uint4 window_slots[];
+  const int t = threadIdx.x, k = t & (WINDOW_GROUP - 1), base = (t & 31) & ~(WINDOW_GROUP - 1);
+  svtpu::Fe* s = reinterpret_cast<svtpu::Fe*>(window_slots) + (t / WINDOW_GROUP) * svtpu::ADD_SLOTS;
+  uint32_t* words = reinterpret_cast<uint32_t*>(s);
+  const int64_t g = (static_cast<int64_t>(blockIdx.x) * blockDim.x + t) / WINDOW_GROUP;
+  const bool live = g < batch;
+  const int64_t b = live ? g : batch - 1;
+  const int64_t* dig = digits + b * npoints;
+  uint32_t pk = f.p[0];
+#pragma unroll
+  for (int j = 1; j < svtpu::NW; ++j) pk = k == j ? f.p[j] : pk;
+
+  // the first selection starts the sum (slots 0-2), the second waits in 3-5
+  uint32_t w[3];
+  int64_t d = dig[0];
+  load_entry(table, d, 0, b, npoints, batch, k, w);
+  const uint32_t y0 = neg_word(w[1], pk, k, base);
+  w[1] = d < 0 ? y0 : w[1];
+  put_words(words, k, w);
+  int64_t d_next = npoints > 2 ? dig[2] : 0;
+  if (npoints > 1) {
+    d = dig[1];
+    load_entry(table, d, 1, b, npoints, batch, k, w);
+    const uint32_t y1 = neg_word(w[1], pk, k, base);
+    w[1] = d < 0 ? y1 : w[1];
+    put_words(words + 3 * svtpu::NW, k, w);
+  }
+  __syncwarp();
+  for (int i = 1; i < npoints; ++i) {
+    // step i + 1's digit and entry are loaded before step i's add and used
+    // after it: their latency hides behind the add's arithmetic
+    const bool more = i + 1 < npoints;  // the same on every lane of the launch
+    d = d_next;
+    if (more) {
+      load_entry(table, d, i + 1, b, npoints, batch, k, w);
+      d_next = i + 2 < npoints ? dig[i + 2] : 0;
+    }
+    const svtpu::G1 acc = svtpu::g1_add_group<WINDOW_GROUP>(s, k, FULL_WARP, f);
+    // slots 0-5 were last read before the add's first __syncwarp
+    words[k] = svtpu::fe_word(acc.x, k);
+    words[svtpu::NW + k] = svtpu::fe_word(acc.y, k);
+    words[2 * svtpu::NW + k] = svtpu::fe_word(acc.z, k);
+    if (more) {
+      const uint32_t y = neg_word(w[1], pk, k, base);
+      w[1] = d < 0 ? y : w[1];
+      put_words(words + 3 * svtpu::NW, k, w);
+    }
+    __syncwarp();  // the slots are written, and every lane read the add's products
+  }
+  if (!live) return;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const uint32_t v = words[c * svtpu::NW + k];
+    int64_t* out = c == 0 ? ox : (c == 1 ? oy : oz);
+    reinterpret_cast<longlong2*>(out + 16 * b)[k] =
+        make_longlong2(static_cast<long long>(v & 0xFFFFu), static_cast<long long>(v >> 16));
+  }
 }
 
 // acc, contrib: three (B, 16) each; outputs three (B, 16).
@@ -404,16 +501,25 @@ extern "C" int svtpu_horner_combine(const void* tx, const void* ty, const void* 
   return static_cast<int>(cudaGetLastError());
 }
 
+// K8 on groups of 8 lanes, `block` threads per block (a multiple of 32 up to
+// 256, block / 8 proofs).
 extern "C" int svtpu_msm_window(const void* table, const void* digits, void* ox, void* oy, void* oz,
                                 int64_t batch, int npoints, const void* field_words, int block,
                                 void* stream) {
   if (batch <= 0) return 0;
+  if (npoints < 1 || block <= 0 || block % 32 != 0 || block > WINDOW_BLOCK_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const svtpu::Field f = svtpu::field_from_host(static_cast<const uint32_t*>(field_words));
-  msm_window_kernel<<<svtpu::grid_for(batch, block), block, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int64_t*>(table), static_cast<const int64_t*>(digits),
-      static_cast<int64_t*>(ox), static_cast<int64_t*>(oy), static_cast<int64_t*>(oz), batch,
-      npoints, f);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t* tab = static_cast<const int64_t*>(table);
+  const int64_t* dig = static_cast<const int64_t*>(digits);
+  int64_t* x = static_cast<int64_t*>(ox);
+  int64_t* y = static_cast<int64_t*>(oy);
+  int64_t* z = static_cast<int64_t*>(oz);
+  const size_t smem = static_cast<size_t>(block / WINDOW_GROUP) * svtpu::ADD_SLOTS * sizeof(svtpu::Fe);
+  msm_window_kernel<<<svtpu::grid_for(batch * WINDOW_GROUP, block), block, smem, s>>>(tab, dig, x, y, z, batch,
+                                                                                      npoints, f);
   return static_cast<int>(cudaGetLastError());
 }
 

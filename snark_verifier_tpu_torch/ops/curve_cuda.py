@@ -10,7 +10,8 @@ MSM's bucket tree, its flush and ``g1_tree_sum``.  What bounds them on the
 H100 and what the design does about it is in the source's header: K2 and K5
 run one point add on a group of ``GROUP`` lanes and read each coordinate
 through two element strides (``point_operands``), so strided slices and
-broadcast operands reach them without a copy.
+broadcast operands reach them without a copy; K3 runs one doubling on a
+group of ``DBL_GROUP`` lanes (``double_points``) on contiguous operands.
 
 The plain versions run RCB15 algorithms 7 and 9 with the same field
 operations on the same operands as ``curve_pallas._add_core``/``_dbl_core``,
@@ -31,11 +32,9 @@ from snark_verifier_tpu_torch.config import use_kernel
 from snark_verifier_tpu_torch.ops import field as F
 from snark_verifier_tpu_torch.ops.curve import G1, g1_select
 from snark_verifier_tpu_torch.ops.field_cuda import (
-    BLOCK,
     _aligned,
     check_limbs,
     field_arg,
-    launch_elementwise,
     mont_mul_plain,
     stream_of,
 )
@@ -50,6 +49,11 @@ ADD_BLOCKS = (64, 128, 256)  # the block sizes chip_smoke.py sweeps for K2/K5
 # K2/K5's schedules: 8 lanes per add, and the one-thread kernels before
 # them; the wrappers launch the first (chip_smoke.py times both)
 SCHEDULES = ("lanes", "thread")
+THREAD_BLOCK = 128  # threads per block of the one-thread kernels
+# K3's lanes per doubling (csrc/bn254.cuh DBL_GROUP): 4 lanes hold its two
+# levels of four products with none idle
+DBL_GROUP = 4
+DBL_BLOCK = 64  # K3's threads per block
 _COORDS, _STRIDES, _PAIR = ctypes.c_void_p * 6, ctypes.c_int64 * 12, ctypes.c_int64 * 2  # svtpu_g1_add_lanes' arrays
 
 
@@ -204,11 +208,12 @@ def add_points(cond, p: G1, q: G1, schedule: str = SCHEDULES[0], block: int = AD
             ins = [_aligned(t) for t in ins]
             ptrs = [t.data_ptr() for t in ins]
             if mask is None:
-                code = lib.svtpu_g1_add(*ptrs, *(o.data_ptr() for o in outs), n, field_arg(FQ), BLOCK, stream_of(ins[0]))
+                code = lib.svtpu_g1_add(*ptrs, *(o.data_ptr() for o in outs), n, field_arg(FQ), THREAD_BLOCK,
+                                        stream_of(ins[0]))
             else:
                 m = mask.contiguous().view(torch.uint8)
                 code = lib.svtpu_g1_add_select(*ptrs, m.data_ptr(), *(o.data_ptr() for o in outs), n, field_arg(FQ),
-                                               BLOCK, stream_of(ins[0]))
+                                               THREAD_BLOCK, stream_of(ins[0]))
         else:
             ins, strides, mask, mask_strides, inner = point_operands(ins, mask, batch)
             code = lib.svtpu_g1_add_lanes(
@@ -231,16 +236,46 @@ def g1_add(p: G1, q: G1) -> G1:
     return out
 
 
+def double_points(p: G1, schedule: str = SCHEDULES[0]) -> tuple[G1, int]:
+    """One launch of K3 on a CUDA point batch: the wrapper's launch, and
+    chip_smoke.py's, which also times the "thread" schedule (the one-thread
+    kernel before this design).  Counts nothing.  Returns (2 p, number of
+    doublings)."""
+    if schedule not in SCHEDULES:
+        raise ValueError(f"double_points: schedule must be one of {SCHEDULES}, got {schedule!r}")
+    ins = [_aligned(t) for t in torch.broadcast_tensors(*p)]
+    batch = ins[0].shape[:-1]
+    n = ins[0].numel() // F.NLIMB
+    outs = [torch.empty_like(ins[0]) for _ in range(3)]
+    lanes = schedule == SCHEDULES[0]
+    if n:
+        with torch.cuda.device(ins[0].device):
+            code = _build.library().svtpu_g1_double(
+                *(t.data_ptr() for t in ins), *(o.data_ptr() for o in outs), n, field_arg(FQ),
+                int(lanes), DBL_BLOCK if lanes else THREAD_BLOCK, stream_of(ins[0]))
+        _build.check(code, "g1_double")
+    return G1(*(o.reshape(*batch, F.NLIMB) for o in outs)), n
+
+
+def dbl_grid(n: int) -> int:
+    """K3's blocks for ``n`` doublings: ``DBL_GROUP`` lanes each,
+    ``DBL_BLOCK`` threads per block; thread t of block b serves doubling (b *
+    DBL_BLOCK + t) // DBL_GROUP and its limb pairs t % DBL_GROUP and t %
+    DBL_GROUP + DBL_GROUP."""
+    return -(-n * DBL_GROUP // DBL_BLOCK)
+
+
 def g1_double(p: G1) -> G1:
-    """Complete doubling of a point batch.  CUDA tensors launch K3; CPU
-    tensors take ``g1_double_plain``."""
+    """Complete doubling of a point batch.  CUDA tensors launch K3 (one
+    doubling on a group of ``DBL_GROUP`` lanes); CPU tensors take
+    ``g1_double_plain``."""
     check_limbs("g1_double", *p)
     if not use_kernel(*p):
         return g1_double_plain(p)
-    outs, n = launch_elementwise("g1_double", p, 3, FQ)
+    out, n = double_points(p)
     if n:
         g1_double.launches += 1
-    return G1(*outs)
+    return out
 
 
 def g1_add_select_plain(cond, p: G1, q: G1) -> G1:

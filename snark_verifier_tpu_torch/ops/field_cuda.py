@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -28,7 +29,6 @@ from snark_verifier_tpu_torch import _build
 from snark_verifier_tpu_torch.config import use_kernel
 from snark_verifier_tpu_torch.ops.field import NLIMB, FieldSpec, _cond_sub_mod, _resolve
 
-BLOCK = 128  # threads per block of the elementwise kernels K2/K3
 # K1's threads per block: 32 was the fastest of the sweep (chip_smoke.py) at
 # 1, 64 and 1820 elements on the H100 (3.62 against 4.62 us per launch at
 # 128 and 1820 elements; within 0.3 % at 1), so one block size serves all.
@@ -37,17 +37,34 @@ K1_BLOCKS = (32, 64, 128)  # the block sizes chip_smoke.py sweeps for K1
 POW_WINDOW = 4  # mont_pow's window (csrc/field.cu POW_TABLE = 2^4)
 
 
+# From this many rows of limbs on (after broadcasting), _columns runs as 16
+# shifted multiply-adds: the sliding windows' (rows, ncols, 16) product
+# outgrows the CPU's caches there, and below it the loop's 32 tensor ops
+# cost more than the windows (tools/time_plain_columns.py, one CPU thread,
+# two runs: the windows take a twelfth to a third of the loop's time at
+# 1-64 rows, the two cross between 256 and 1024 rows, and the loop takes
+# 0.55-0.8 of the windows' time at 4096 rows and a quarter to a third at
+# 32768).
+COLUMN_LOOP_ROWS = 1024
+
+
 def _columns(a, b, ncols: int):
     """Schoolbook column sums of a * b: (..., 16) x (..., 16) -> (..., ncols),
-    column c = sum_{i+j=c} a_i b_j (each < 2^36, exact in int64).  Row i of
-    the 16 x 16 product matrix is shifted right by i by padding the rows to 33
-    entries and reading the flat buffer back as rows of 32."""
-    prod = a.unsqueeze(-1) * b.unsqueeze(-2)  # (..., 16, 16), each < 2^32
-    lead = prod.shape[:-2]
-    padded = torch.nn.functional.pad(prod, (0, NLIMB + 1))  # rows of 33
-    skew = padded.reshape(*lead, NLIMB * (2 * NLIMB + 1))[..., : NLIMB * 2 * NLIMB]
-    cols = skew.reshape(*lead, NLIMB, 2 * NLIMB).sum(-2)
-    return cols[..., :ncols]
+    column c = sum_{i+j=c} a_i b_j (each < 2^36, exact in int64).  Below
+    ``COLUMN_LOOP_ROWS`` rows, one product of b's sliding windows (b padded
+    by 15 zeros before and 16 after, unfolded: window c holds b_{c-15..c})
+    with a reversed, summed over the window; from there, 16 multiply-adds
+    of a_i b into columns i..i+15, whose temporaries stay one row of limbs
+    wide."""
+    rows = torch.broadcast_shapes(a.shape, b.shape)[:-1]
+    if math.prod(rows) < COLUMN_LOOP_ROWS:
+        windows = torch.nn.functional.pad(b, (NLIMB - 1, NLIMB)).unfold(-1, NLIMB, 1)[..., :ncols, :]
+        return (windows * a.flip(-1).unsqueeze(-2)).sum(-1)
+    cols = a.new_zeros(*rows, ncols)
+    for i in range(min(NLIMB, ncols)):
+        w = min(NLIMB, ncols - i)
+        cols[..., i:i + w] += a[..., i:i + 1] * b[..., :w]
+    return cols
 
 
 def mont_mul_plain(a, b, spec: FieldSpec):
@@ -89,26 +106,6 @@ def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def launch_elementwise(name: str, ins, n_out: int, spec: FieldSpec, block: int = BLOCK):
-    """Launch the elementwise kernel ``svtpu_<name>`` (K1-K3): broadcast the
-    (..., 16) inputs, allocate ``n_out`` outputs, run one thread per element
-    in blocks of ``block`` on the current stream and raise on a launch error.
-    Returns (outputs reshaped to the batch, element count)."""
-    ins = torch.broadcast_tensors(*ins)
-    batch = ins[0].shape[:-1]
-    ins = [_aligned(t) for t in ins]
-    n = ins[0].numel() // NLIMB
-    outs = [torch.empty_like(ins[0]) for _ in range(n_out)]
-    entry = getattr(_build.library(), f"svtpu_{name}")
-    with torch.cuda.device(ins[0].device):
-        code = entry(
-            *(t.data_ptr() for t in ins), *(o.data_ptr() for o in outs),
-            n, field_arg(spec), block, stream_of(ins[0]),
-        )
-    _build.check(code, name)
-    return [o.reshape(*batch, NLIMB) for o in outs], n
-
-
 def mont_mul(a, b, spec: FieldSpec, block: int | None = None):
     """Montgomery product of (..., 16) int64 limb tensors (broadcasting).
     CUDA tensors launch K1 in blocks of ``block`` threads (``K1_BLOCK``
@@ -119,7 +116,13 @@ def mont_mul(a, b, spec: FieldSpec, block: int | None = None):
         raise ValueError(f"mont_mul: block must be one of {K1_BLOCKS}, got {block}")
     if not use_kernel(a, b):
         return mont_mul_plain(a, b, spec)
-    (out,), n = launch_elementwise("mont_mul", (a, b), 1, spec, K1_BLOCK if block is None else block)
+    a, b = (_aligned(t) for t in torch.broadcast_tensors(a, b))
+    n = a.numel() // NLIMB
+    out = torch.empty_like(a)
+    with torch.cuda.device(a.device):
+        code = _build.library().svtpu_mont_mul(a.data_ptr(), b.data_ptr(), out.data_ptr(), n, field_arg(spec),
+                                               K1_BLOCK if block is None else block, stream_of(a))
+    _build.check(code, "mont_mul")
     if n:
         mont_mul.launches += 1
     return out

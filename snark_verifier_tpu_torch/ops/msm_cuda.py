@@ -62,7 +62,9 @@ from snark_verifier_tpu_torch.ops.field_cuda import _aligned, check_limbs, field
 WINDOW = 4
 NWINDOWS = (NLIMB * LIMB_BITS) // WINDOW  # 64 signed 4-bit windows
 NTAB = (1 << (WINDOW - 1)) + 1  # |digit| in 0..8 -> 9 table entries
-BLOCK = 128  # threads per block of K8 and K9
+BLOCK = 128  # threads per block of K9
+WINDOW_GROUP = 8  # K8's lanes per proof: one complete add on a group (csrc/bn254.cuh g1_add_group)
+WINDOW_BLOCK = 64  # K8's threads per block (8 proofs)
 MAX_PROOFS_PER_BLOCK = 8  # the window sums of 8 proofs fill 48 KB of K4's shared memory
 # K4 blocks per SM: a block's Horner threads share its first warp, and a
 # third block on an SM slows every chain (chip_smoke.py's sweep, B = 8-1820)
@@ -177,9 +179,25 @@ def msm_window_plain(table, digits) -> G1:
     return acc
 
 
+def window_entry_offset(d, i, b, npoints: int, batch: int):
+    """Element offset of the first limb of T_i[|d|]'s x in a contiguous (9,
+    3, n, B, 16) table, for proof ``b``: the kernel's map (csrc/msm.cu
+    load_entry).  y and z lie n * B * 16 elements further each; lane k of
+    the proof's group reads limb pair k."""
+    return (abs(d) * 3 * npoints + i) * batch * NLIMB + b * NLIMB
+
+
+def window_grid(batch: int) -> int:
+    """K8's blocks for ``batch`` proofs: ``WINDOW_GROUP`` lanes each,
+    ``WINDOW_BLOCK`` threads per block; thread t of block g serves proof (g *
+    WINDOW_BLOCK + t) // WINDOW_GROUP."""
+    return -(-batch * WINDOW_GROUP // WINDOW_BLOCK)
+
+
 def msm_window(table, digits) -> G1:
-    """One window of the two-kernel MSM.  CUDA tensors launch K8 (one thread
-    per proof); CPU tensors take ``msm_window_plain``.  Shapes as there."""
+    """One window of the two-kernel MSM.  CUDA tensors launch K8 (one proof
+    on a group of ``WINDOW_GROUP`` lanes, its adds in ``msm_window_plain``'s
+    order); CPU tensors take ``msm_window_plain``.  Shapes as there."""
     if table.dtype != torch.int64 or digits.dtype != torch.int64:
         raise ValueError("msm_window: table and digits must be int64")
     if table.dim() != 5 or table.shape[:2] != (NTAB, 3) or table.shape[-1] != NLIMB or table.shape[2] < 1:
@@ -194,7 +212,7 @@ def msm_window(table, digits) -> G1:
     with torch.cuda.device(table.device):
         code = _build.library().svtpu_msm_window(
             table.data_ptr(), digits.data_ptr(), *(o.data_ptr() for o in outs),
-            batch, n, field_arg(F.FQ), BLOCK, stream_of(table),
+            batch, n, field_arg(F.FQ), WINDOW_BLOCK, stream_of(table),
         )
     _build.check(code, "msm_window")
     if batch:

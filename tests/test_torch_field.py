@@ -83,6 +83,24 @@ def test_mont_mul_matches_jax(specs):
     assert_same(F.mont_mul(ta.reshape(4, 8, NLIMB), tb[:8], spec), JF.mont_mul(ja.reshape(4, 8, NLIMB), jb[:8], jspec))
 
 
+@pytest.mark.parametrize("rows", [(1, 1023), (1023, 1), (1, 1024), (1024, 1024)], ids=str)
+def test_mont_mul_plain_column_paths_match_jax_and_ints(rows):
+    """Both ways _columns forms the column sums (sliding windows below
+    COLUMN_LOOP_ROWS broadcast rows, multiply-adds from there), with a small
+    operand broadcast against a large one either way round: K1's plain
+    version against the JAX package and python ints."""
+    assert FK.COLUMN_LOOP_ROWS == 1024
+    na, nb = rows
+    a_vals = (edge_ints(F.FQ.modulus) + rand_ints(11, F.FQ.modulus, na))[:na]
+    b_vals = (edge_ints(F.FQ.modulus)[::-1] + rand_ints(12, F.FQ.modulus, nb))[:nb]
+    (ja, ta), (jb, tb) = both(F.FQ, a_vals), both(F.FQ, b_vals)
+    got = FK.mont_mul_plain(ta, tb, F.FQ)
+    assert_same(got, JF.mont_mul(ja, jb, JF.FQ))
+    n = max(na, nb)
+    a_full, b_full = a_vals * (n // na), b_vals * (n // nb)
+    assert list(F.FQ.decode(got)) == [x * y % F.FQ.modulus for x, y in zip(a_full, b_full)]
+
+
 def test_mont_mul_plain_matches_pallas_kernel(monkeypatch):
     """The plain version of K1 against the Pallas kernel body it replaces,
     run by the Pallas interpreter on a small lane tier."""

@@ -23,10 +23,18 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 REPO = Path(__file__).resolve().parents[1]
 if str(REPO) not in sys.path:
     sys.path.insert(0, str(REPO))
+
+# The port's CPU tests run plain torch on small tensors, where intra-op
+# threads buy nothing.  With torch's default of one thread per core in each
+# of several pytest-xdist workers the threads oversubscribed the host and
+# made the plain pairing tests ten times slower.  Every worker imports every
+# test module when it collects, so one thread per worker holds for the run.
+torch.set_num_threads(1)
 
 from snark_verifier_tpu.errors import AssertionFailure  # noqa: E402
 from snark_verifier_tpu.loader.native import NativeLoader  # noqa: E402

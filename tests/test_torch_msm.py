@@ -7,7 +7,10 @@ outputs are compared in affine form, except where the port runs the JAX
 algorithm itself (``msm_batched_windowed``), which must match limb for limb.
 """
 
+import fcntl
 import functools
+import os
+import pickle
 
 import numpy as np
 import pytest
@@ -55,40 +58,50 @@ def test_signed_digits_match_pallas():
         assert sum(int(v) << (4 * w) for w, v in enumerate(row)) == s
 
 
-@pytest.fixture
-def small_tier(monkeypatch):
-    """The lane tier tests/test_msm_fused.py runs the JAX fused MSM at."""
-    monkeypatch.setattr(FP, "LANES", 128)
-    monkeypatch.setattr(FP, "FIXED_TOTAL", 128)
-    MP.msm_batched_fused.clear_cache()
-    yield
-    MP.msm_batched_fused.clear_cache()
-
-
 @functools.lru_cache(maxsize=None)
-def _fused():
+def _fused_case():
+    """B = 3 proofs of n = 8 terms with 32-bit scalars, and the JAX fused
+    MSM's output at 9 signed windows (its test hook), run at the lane tier
+    tests/test_msm_fused.py runs it at: (points as numpy limbs, scalars, the
+    oracle's MSMs, the JAX output in affine form, its projective (x, y, z)
+    as numpy)."""
     B, n = 3, 8
     jg, scal, want = case(100 * B + n, B, n, scalar_bits=32)
-    return jg, scal, want, MP.msm_batched_fused(jg, scal, 9)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(FP, "LANES", 128)
+        mp.setattr(FP, "FIXED_TOTAL", 128)
+        MP.msm_batched_fused.clear_cache()
+        try:
+            out = MP.msm_batched_fused(jg, scal, 9)
+        finally:
+            MP.msm_batched_fused.clear_cache()
+    return (tuple(np.asarray(c) for c in jg), scal, want, JC.g1_to_affine_ints(out),
+            tuple(np.asarray(c) for c in out))
 
 
-def fused_case():
-    """B = 3 proofs of n = 8 terms with 32-bit scalars, and the JAX fused
-    MSM's affine output at 9 signed windows (its test hook), computed once
-    per process; call it under ``small_tier``."""
-    jg, scal, want, out = _fused()
-    return jg, scal, want, JC.g1_to_affine_ints(out)
+@pytest.fixture(scope="session")
+def fused(tmp_path_factory):
+    """``_fused_case``, computed once per run.  Its JAX compile takes tens
+    of seconds, and three tests in two files use it, which pytest-xdist's
+    ``--dist load`` may send to three workers: the first worker to ask runs
+    it and leaves it pickled in the run's temporary directory, shared by
+    the workers, and the others read it (a file lock orders them: the
+    pattern of pytest-xdist's documentation for session fixtures)."""
+    if "PYTEST_XDIST_WORKER" not in os.environ:
+        return _fused_case()
+    root = tmp_path_factory.getbasetemp().parent  # the run's, above each worker's own
+    path = root / "jax_fused_msm_case.pkl"
+    with open(root / "jax_fused_msm_case.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not path.exists():
+            path.write_bytes(pickle.dumps(_fused_case()))
+    return pickle.loads(path.read_bytes())
 
 
-def fused_jax_projective():
-    """The projective (x, y, z) of ``fused_case``'s JAX output."""
-    return _fused()[3]
-
-
-def test_msm_fused_matches_jax_fused(small_tier):
+def test_msm_fused_matches_jax_fused(fused):
     """9 signed windows (32-bit scalars), the JAX fused MSM's test hook, at
     B = 3 proofs of n = 8 terms."""
-    jg, scal, want, jax_out = fused_case()
+    jg, scal, want, jax_out, _ = fused
     got = MK.msm_batched_fused(g1_from_numpy(jg, "cpu"), limbs_to_tensor(scal, "cpu"), 9)
     assert C.g1_to_affine_ints(got) == jax_out == want
 

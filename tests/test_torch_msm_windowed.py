@@ -15,7 +15,7 @@ import jax
 import numpy as np
 import pytest
 import torch
-from test_torch_msm import case, fused_case, fused_jax_projective, small_tier  # noqa: F401  (small_tier is a fixture)
+from test_torch_msm import case, fused  # noqa: F401  (fused is a fixture)
 
 from snark_verifier_tpu.ops import msm_pallas as MP
 from snark_verifier_tpu.util import bn254
@@ -96,15 +96,14 @@ def test_horner_plain_matches_jax_horner_call(tables):
     assert C.g1_to_affine_ints(got) == [bn254.g1_add(bn254.g1_mul(x, 16), y) for x, y in zip(a, c)]
 
 
-def test_scan_plain_matches_jax_window_horner_composition(small_tier):  # noqa: F811
+def test_scan_plain_matches_jax_window_horner_composition(fused):  # noqa: F811
     """K4's plain version against the JAX package's fused MSM on the CPU,
     which composes ``_window_call`` and ``_horner_call`` over the windows
     (from the identity, most significant first), limb for limb: 9 signed
     windows, B = 3 proofs of n = 8 terms (test_torch_msm.py's case), on the
     JAX CPU path's own table T_k = T_(k-1) + P (complete adds, K2's plain
     version)."""
-    jg, scal, want, jax_out = fused_case()
-    jax_proj = [np.asarray(c) for c in fused_jax_projective()]
+    jg, scal, want, jax_out, jax_proj = fused
     g = g1_from_numpy(jg, "cpu")
     p = C.G1(*(c.transpose(0, 1) for c in g))  # (n, B): point-major
     entries = [C.g1_identity(p.batch_shape, "cpu"), p]
@@ -136,13 +135,13 @@ def test_scan_validates_and_picks_its_geometry(tables):
     assert MK.scan_geometry(1820, 132, 1) == (1, 1820)
 
 
-def test_msm_fused_mega_off_matches_jax_fused(small_tier, monkeypatch):  # noqa: F811
+def test_msm_fused_mega_off_matches_jax_fused(fused, monkeypatch):  # noqa: F811
     """``msm_batched_fused`` with ``MEGA`` off (K8/K9's plain versions) at
     9 signed windows, B = 3 proofs of n = 8 terms (test_torch_msm.py's case)
     against the JAX package's fused MSM, which runs the same two kernels on
     the CPU, and the oracle, in affine form."""
     monkeypatch.setattr(MK, "MEGA", False)
-    jg, scal, want, jax_out = fused_case()
+    jg, scal, want, jax_out, _ = fused
     got = MK.msm_batched_fused(g1_from_numpy(jg, "cpu"), limbs_to_tensor(scal, "cpu"), 9)
     assert C.g1_to_affine_ints(got) == jax_out == want
 
