@@ -14,14 +14,13 @@ of both its accumulators) and config 4's aggregation fold:
 3. kernels: each kernel against its plain PyTorch version on the card, bit
    for bit, at the main path's shapes, with both times (CUDA events, median
    of 5 runs after a warm-up) and the least time the card could take
-   (bound); K1 also at 32, 64 and 128 threads per block at 1, 64 and 1820
-   elements (device time per launch, queued back to back); ``mont_pow`` at
+   (bound); ``mont_pow`` at
    (1820, 16) and (1, 16), Fq and Fr, exponents 0, 1, 256, p - 2 and
    (p + 1) / 4, with both Montgomery products (``fmul_eo``, ``fmul``), also
    against python ints, and its device time per product at batch 1 with
    each, beside the same chain as 329 K1 launches; K6 at the decide's shape
    (nwin 32, window 8) and the 2^20 MSM's (nwin 24, window 11) at batch 1
-   and 2, each of its three schedules; K4 also against the two-kernel MSM
+   and 2 (device time per launch, queued back to back); K4 also against the two-kernel MSM
    (K8/K9, whose composition it computes) and at 1 to 8 proofs per block at
    batches of 8 to 1820 proofs (the geometry its wrapper picks against the
    best); K8 and K9 also at K4's shape (reported beside their path's numbers
@@ -32,17 +31,18 @@ of both its accumulators) and config 4's aggregation fold:
    launches on the main path (32 to 32768 adds) with affine, projective,
    strided and broadcast operands and K5 masks all true, all false, random
    and broadcast, against the oracle on 64 points, and their device time
-   per launch by schedule (8 lanes, or one thread: the kernels before this
-   design) and block size, the host's enqueue per call against the old
-   wrapper's, and the chain of one add (one add's launch less an empty
+   per launch, and the chain of one add (one add's launch less an empty
    one); K3 (a doubling on a group of 4 lanes) at 32760, 8192, 288 and 32
    doublings on affine and projective points with identities among them,
-   at both group widths (4, 8) and on one thread (the kernel before this
-   design), bit for bit, and their device time per launch in mirrored
-   turns, and one doubling's chain; K8 (a proof's window sum on a group
-   of 8 lanes) and its one-thread kernel at config 1's shape (B = 1820,
-   n = 18) and the outer snark's (below), also with forced first digits
-   (negative, zero, +-8), and their device time per launch in turns;
+   bit for bit, its device time per launch and one doubling's chain; K8
+   (a proof's window sum on a group of 8 lanes) at config 1's shape (B =
+   1820, n = 18) and the outer snark's (below), also with forced first
+   digits (negative, zero, +-8), its device time per launch and one
+   proof's chain; K9 (a proof's Horner step on a group of 8 lanes) at both
+   shapes with a projective accumulator, the step onto the identity, an
+   identity contribution and contrib = +-16 acc (the add's doubling case,
+   and a sum that is the identity), its device time per launch and one
+   proof's chain;
 4. slice: 1820 proofs (4 unique ones tiled, 2 rows with a corrupted
    commitment, 1 row with a wrong instance) from the data-file fixture;
    accumulators equal the native verifier's, ``ok`` False exactly on the
@@ -59,7 +59,7 @@ of both its accumulators) and config 4's aggregation fold:
    launch of each per pairing check, no single Fq12 product, one K6 launch
    for both MSMs, at most 16 K1 and 2 ``mont_pow`` launches, 62 K5 and 34
    K2 launches); warm time, verified proofs/s (verify + decide), peak
-   memory, and its profile with each K2/K5 schedule;
+   memory, and its profile;
    ``build_verifier(decide_dk=...)`` on 8 proofs equal to the host oracle;
 7. large MSM: ``msm_serial`` at 2^16 (window 8) and 2^20 (window 11,
    signed) points, exact against the oracle; points/s and peak memory;
@@ -137,7 +137,6 @@ AGG_WINDOWED_KERNELS = ("mont_mul", "mont_pow", "g1_add", "g1_double", "msm_wind
                         *PAIRING_KERNELS)  # MEGA off
 PAIRING_BATCHES = (1, 8)  # K7's pairing kernels: the decide's batch and the outer snark's
 SCAN_SWEEP_BATCHES = (8, 66, 132, 264, 400, 528, 800, 1056, 1320, 1820)  # K4's geometry sweep
-K1_SWEEP_BATCHES = (1, 64, B)  # K1's block-size sweep
 HORNER_SHAPES = ((32, 8), (24, 11))  # K6: (nwin, window) of the decide's MSM and of the 2^20 MSM (signed)
 DECIDE_MAX_K1, DECIDE_MAX_POW, VERIFY_MAX_K1 = 16, 2, 230  # launch ceilings on the decide and the Keccak verify
 # K2/K5: the widths of their launches on the main path (the decide's bucket
@@ -233,22 +232,6 @@ def device_ms(torch, fn, reps: int, sleep_ms: float = 40.0) -> float:
     require(enqueue_ms < sleep_ms, f"device_ms: enqueueing {reps} calls took {enqueue_ms:.1f} ms, more than the "
             f"{sleep_ms} ms sleep in front of them")
     return start.elapsed_time(stop) / reps
-
-
-def enqueue_ms(torch, fn, reps: int = 100, sleep_ms: float = 40.0) -> float:
-    """Mean host milliseconds to enqueue one call of ``fn``: after a warm-up
-    call, the ``reps`` calls are queued behind a sleep kernel, so the host
-    never waits for the card.  Raises if they outran the sleep."""
-    fn()
-    torch.cuda.synchronize()
-    torch.cuda._sleep(int(sleep_ms * 1e-3 * CLOCK_HZ))
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    host_ms = (time.perf_counter() - t0) * 1e3
-    torch.cuda.synchronize()
-    require(host_ms < sleep_ms, f"enqueue_ms: {reps} calls took {host_ms:.1f} ms, more than the {sleep_ms} ms sleep")
-    return host_ms / reps
 
 
 def pow_products(exponent: int) -> int:
@@ -411,45 +394,35 @@ def phase_kernels_double(torch, p, r, results_field):
     """K3, one doubling on a group of 4 lanes, against its plain version bit
     for bit at every width of ``DBL_WIDTHS``, on affine points (the identity
     in row 0) and projective ones (P + Q, P + P, and P + (-P) and P + O
-    among the first rows), beside the one-thread kernel it had before; then
-    device ms per launch at each width, the two schedules in mirrored
-    turns, and the chain of one doubling (``one_item_chain``)."""
+    among the first rows); then device ms per launch at each width, and the
+    chain of one doubling (``one_item_chain``)."""
     from snark_verifier_tpu_torch.ops import curve as C
     from snark_verifier_tpu_torch.ops import curve_cuda as CK
 
-    scheds = CK.SCHEDULES  # ("lanes", "thread")
     for n in DBL_WIDTHS:
         for kind, pt in (("affine", p), ("projective", r)):
             cut = C.G1(*(c[:n] for c in pt))
             require(bool((cut.z == 0).all(-1).any()), f"g1_double n={n} {kind}: no identity (z = 0) among the inputs")
-            want = CK.g1_double_plain(cut)
-            for sched in scheds:
-                got, _ = CK.double_points(cut, sched)
-                require(all(torch.equal(g, w) for g, w in zip(got, want)), f"g1_double n={n} {kind} {sched}: != plain")
-            require(all(torch.equal(g, w) for g, w in zip(CK.g1_double(cut), want)),
+            require(all(torch.equal(g, w) for g, w in zip(CK.g1_double(cut), CK.g1_double_plain(cut))),
                     f"g1_double n={n} {kind}: != plain")
     torch.cuda.synchronize()
     log(f"kernel g1_double (lanes): equal to plain at widths {DBL_WIDTHS} on affine and projective points with "
-        f"identities among them, on {CK.DBL_GROUP} lanes and on one thread")
+        f"identities among them, on {CK.DBL_GROUP} lanes")
 
     latency = results_field["mont_pow"]["product_latency_ms"]
     out = {}
-    order = [*reversed(scheds), *scheds]  # mirrored turns: thread, lanes, lanes, thread
     for n in DBL_WIDTHS:
         cut = C.G1(*(c[:n] for c in r))
-        turns = [(sched, device_ms(torch, lambda sched=sched: CK.double_points(cut, sched), reps=50)) for sched in order]
-        per = {sched: statistics.mean(t for k, t in turns if k == sched) for sched in scheds}
+        ms = device_ms(torch, lambda: CK.double_points(cut), reps=50)
         b = bound(6 * n * FE_BYTES, MONT_PER["double"] * n)
-        out[n] = {"device_ms": per, "turns_ms": turns, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
-        log(f"kernel g1_double n={n}: device ms per launch by schedule { {k: round(v, 6) for k, v in per.items()} } "
-            f"(turns {[(k, round(t, 6)) for k, t in turns]}); bound {b['bound_ms']:.6f} ms ({b['bound_by']})")
+        out[n] = {"device_ms": ms, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
+        log(f"kernel g1_double n={n}: device ms per launch {ms:.6f}; bound {b['bound_ms']:.6f} ms ({b['bound_by']})")
     one_p = C.G1(*(c[:1] for c in r))
-    chain = {sched: one_item_chain(torch, lambda sched=sched: CK.double_points(one_p, sched)) for sched in scheds}
+    chain = one_item_chain(torch, lambda: CK.double_points(one_p))
     log(f"kernel g1_double: one doubling's launch less an empty launch {chain} ms (device_ms, in turns); products "
-        f"alone 2 x fmul_eo {2 * latency['fmul_eo']:.6f} ms, 8 x fmul {8 * latency['fmul']:.6f} ms")
+        f"alone 2 x fmul_eo {2 * latency['fmul_eo']:.6f} ms")
     return {"by_width": out, "group_lanes": CK.DBL_GROUP, "block": CK.DBL_BLOCK, "one_double": chain,
-            "critical_path_ms": chain[scheds[0]]["chain_ms"], "critical_path_thread_ms": chain["thread"]["chain_ms"],
-            "products_on_chain_ms": 2 * latency["fmul_eo"], "products_on_chain_thread_ms": 8 * latency["fmul"]}
+            "critical_path_ms": chain["chain_ms"], "products_on_chain_ms": 2 * latency["fmul_eo"]}
 
 
 def window_cases(torch, table, dig_w, where: str) -> float:
@@ -484,14 +457,56 @@ def window_turns(torch, table, dig_w) -> dict:
             **one_item_chain(torch, lambda: MK.msm_window(one_table, one_dig))}
 
 
-def horner_chain(torch, acc, contrib) -> dict:
-    """K9's chain: one proof's Horner step (4 doublings and an add onto a
-    projective accumulator) less an empty launch (``one_item_chain``)."""
+def horner_cases(torch, acc, contrib, where: str) -> float:
+    """K9 against ``msm_horner_plain``, bit for bit: a projective accumulator
+    and contribution, the step onto the identity (the MSM's first window),
+    an identity contribution, contrib = 16 acc (the add's doubling case: the
+    triple the 4 doublings give) and contrib = -16 acc (the sum is the
+    identity).  Returns the largest |kernel - plain|."""
+    from snark_verifier_tpu_torch.ops import curve as C
+    from snark_verifier_tpu_torch.ops import curve_cuda as CK
+    from snark_verifier_tpu_torch.ops import field as F
+    from snark_verifier_tpu_torch.ops import msm_cuda as MK
+
+    batch = acc.x.shape[0]
+    ident = C.g1_identity((batch,), acc.x.device)
+    sixteen = acc
+    for _ in range(WINDOW_DBLS):
+        sixteen = CK.g1_double_plain(sixteen)
+    minus = C.G1(sixteen.x, F.neg(sixteen.y, F.FQ), sixteen.z)
+    err = 0.0
+    for case, a, c in (("projective", acc, contrib), ("from the identity", ident, contrib),
+                       ("identity contrib", acc, ident), ("contrib = 16 acc", acc, sixteen),
+                       ("contrib = -16 acc", acc, minus)):
+        got, want = MK.msm_horner(a, c), MK.msm_horner_plain(a, c)
+        torch.cuda.synchronize()
+        require(all(torch.equal(g, w) for g, w in zip(got, want)), f"msm_horner ({where}, {case}): kernel != plain")
+        err = max(err, max_abs_err(torch, got, want))
+        if case == "contrib = -16 acc":
+            require(bool((want.z == 0).all()), f"msm_horner ({where}): 16 acc - 16 acc must be the identity")
+    return err
+
+
+def horner_result(torch, acc, contrib, err: float) -> dict:
+    """K9's row of the kernels line at this batch: call and plain ms (CUDA
+    events), its bound, its device ms per launch (``device_ms``) and its
+    chain, one proof's launch less an empty launch (``one_item_chain``)."""
     from snark_verifier_tpu_torch.ops import curve as C
     from snark_verifier_tpu_torch.ops import msm_cuda as MK
 
+    batch = acc.x.shape[0]
     one_acc, one_c = (C.G1(*(t[:1].contiguous() for t in g)) for g in (acc, contrib))
-    return one_item_chain(torch, lambda: MK.msm_horner(one_acc, one_c))
+    ms = cuda_ms(torch, lambda: MK.msm_horner(acc, contrib))
+    plain_ms = cuda_ms(torch, lambda: MK.msm_horner_plain(acc, contrib))
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **bound(9 * batch * FE_BYTES, (WINDOW_DBLS * MONT_PER["double"] + MONT_PER["add"]) * batch),
+            "device_ms": device_ms(torch, lambda: MK.msm_horner(acc, contrib), reps=50),
+            **one_item_chain(torch, lambda: MK.msm_horner(one_acc, one_c))}
+
+
+def horner_summary(row: dict) -> str:
+    return (f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms; device ms per launch {row['device_ms']:.6f}, "
+            f"one proof's chain {row['chain_ms']:.6f} ms; bound {row['bound_ms']:.6f} ms ({row['bound_by']})")
 
 
 def scan_chain(torch, table, digits) -> dict:
@@ -505,8 +520,7 @@ def scan_chain(torch, table, digits) -> dict:
 
 def phase_kernels_field(torch, dev, rng):
     """K1 ``mont_mul`` and ``mont_pow`` against their plain versions and
-    python ints, bit for bit: K1 at (1820, 16) with edge values, its block
-    sizes at 1, 64 and 1820 elements (timed, beside the wrapper's pick);
+    python ints, bit for bit: K1 at (1820, 16) with edge values;
     ``mont_pow`` at (1820, 16) and (1, 16) with the exponents 0, 1, 256,
     p - 2 and (p + 1) / 4, with both Montgomery products, and the device time
     per product of each at batch 1 (the chain's latency)."""
@@ -534,25 +548,6 @@ def phase_kernels_field(torch, dev, rng):
             f"plain {times[spec.name][1]:.4f} ms")
     results["mont_mul"] = {"max_abs_err": max(errs), "ms": times["Fr"][0], "plain_ms": times["Fr"][1],
                            **bound(3 * B * FE_BYTES, B)}
-
-    # K1's block size: device time per launch (queued back to back) at each
-    # batch and block; every block bit-equal to the plain version
-    _, ta, tb = operands["Fr"]
-    sweep, picks = {}, {}
-    for n in K1_SWEEP_BATCHES:
-        xa, xb = ta[:n].contiguous(), tb[:n].contiguous()
-        want = FK.mont_mul_plain(xa, xb, F.FR)
-        row = {}
-        for block in FK.K1_BLOCKS:
-            require(torch.equal(FK.mont_mul(xa, xb, F.FR, block=block), want), f"mont_mul n={n} block {block}: != plain")
-            row[block] = device_ms(torch, lambda: FK.mont_mul(xa, xb, F.FR, block=block), reps=200)
-        best = min(row, key=row.get)
-        sweep[n], picks[n] = row, {"best": best, "wrapper": FK.K1_BLOCK, "wrapper_over_best": row[FK.K1_BLOCK] / row[best]}
-        log(f"kernel mont_mul block sweep at n={n}: device ms per launch by threads per block "
-            f"{ {k: round(v, 5) for k, v in row.items()} }; best {best}; the wrapper's {FK.K1_BLOCK} "
-            f"{row[FK.K1_BLOCK] / row[best]:.3f}x the best")
-    results["mont_mul"]["block_sweep_device_ms"] = sweep
-    results["mont_mul"]["block_pick"] = picks
 
     # mont_pow: every exponent at both widths, both products, against the
     # plain chain and python ints
@@ -662,7 +657,7 @@ def phase_kernels_windowed(torch, dev, msm_case):
     w = 31  # a middle window: digits spread over [-8, 8]
     dig_w, dig_next = digits[..., w].contiguous(), digits[..., w + 1].contiguous()
     err = window_cases(torch, table, dig_w, f"B={B}, n={N_TERMS}")
-    got, want = MK.msm_window(table, dig_w), MK.msm_window_plain(table, dig_w)
+    got = MK.msm_window(table, dig_w)
     dl = dig_w.tolist()
     for row in range(3):
         want_aff = bn254.g1_msm([d % bn254.R for d in dl[row]], ps[row * N_TERMS:(row + 1) * N_TERMS])
@@ -678,21 +673,15 @@ def phase_kernels_windowed(torch, dev, msm_case):
         f"bound {results['msm_window']['bound_ms']:.6f} ms ({results['msm_window']['bound_by']})")
 
     acc = MK.msm_window(table, dig_next)  # a projective accumulator (z != 1)
-    got, want = MK.msm_horner(acc, want), MK.msm_horner_plain(acc, want)
-    torch.cuda.synchronize()
-    require(all(torch.equal(g, x) for g, x in zip(got, want)), "msm_horner: kernel != plain")
     contrib = MK.msm_window(table, dig_w)
+    err = horner_cases(torch, acc, contrib, f"B={B}")
+    got = MK.msm_horner(acc, contrib)
     a, c = C.g1_to_affine_ints(C.G1(*(t[:3] for t in acc))), C.g1_to_affine_ints(C.G1(*(t[:3] for t in contrib)))
     require(C.g1_to_affine_ints(C.G1(*(t[:3] for t in got))) == [bn254.g1_add(bn254.g1_mul(x, 16), y) for x, y in zip(a, c)],
             "msm_horner: kernel != oracle")
-    ms = cuda_ms(torch, lambda: MK.msm_horner(acc, contrib))
-    plain_ms = cuda_ms(torch, lambda: MK.msm_horner_plain(acc, contrib))
-    results["msm_horner"] = {"max_abs_err": max_abs_err(torch, got, want), "ms": ms, "plain_ms": plain_ms,
-                             **bound(9 * B * FE_BYTES, (WINDOW_DBLS * MONT_PER["double"] + MONT_PER["add"]) * B),
-                             **horner_chain(torch, acc, contrib)}
-    log(f"kernel msm_horner (B={B}): equal to plain and oracle; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"one proof's chain {results['msm_horner']['chain_ms']:.6f} ms, "
-        f"bound {results['msm_horner']['bound_ms']:.6f} ms ({results['msm_horner']['bound_by']})")
+    results["msm_horner"] = horner_result(torch, acc, contrib, err)
+    log(f"kernel msm_horner (B={B}): equal to plain (projective, identity acc and contrib, contrib = +-16 acc) and "
+        f"the oracle; {horner_summary(results['msm_horner'])}")
 
     # the whole two-kernel MSM (64 windows: 64 launches of each) against K4 and the oracle
     two = MK.msm_windowed(table, digits)
@@ -762,11 +751,9 @@ def phase_kernels_decide(torch, dev, rng, results_field):
         f"plain {plain_ms:.4f} ms")
 
     # K6 at nwin = 32 (window 8, the decide's: batch 2, its two MSMs in one
-    # launch) and 24 (window 11, the signed 2^20 MSM's), batch 1 and 2, each
-    # schedule ("thread": the one-thread kernel before this redesign; "warp":
-    # products on lanes, fmul; "warp_eo": the wrapper's, with fmul_eo)
+    # launch) and 24 (window 11, the signed 2^20 MSM's), batch 1 and 2
     latency = results_field["mont_pow"]["product_latency_ms"]["fmul_eo"]
-    variants = {}
+    by_batch = {}
     for nwin, window in HORNER_SHAPES:
         pts = [pool[rng.randrange(64)] for _ in range(2 * nwin)]
         tot = C.G1(*(c.reshape(2, nwin, 16) for c in CK.g1_double(C.g1_from_affine_ints(pts, dev))))
@@ -775,16 +762,14 @@ def phase_kernels_decide(torch, dev, rng, results_field):
         require(C.g1_to_affine_ints(want) == want_aff, f"horner_combine_plain nwin={nwin}: != oracle")
         for batch in (1, 2):
             tb = C.G1(*(c[:batch].contiguous() for c in tot))
-            row = {}
-            for variant in MK.HORNER_VARIANTS:
-                got = MK.horner_combine(tb, window, variant)
-                torch.cuda.synchronize()
-                require(all(torch.equal(g, w[:batch]) for g, w in zip(got, want)),
-                        f"horner_combine nwin={nwin} batch {batch} {variant}: kernel != plain")
-                row[variant] = device_ms(torch, lambda: MK.horner_combine(tb, window, variant), reps=5, sleep_ms=5.0)
-            variants[f"nwin_{nwin}_batch_{batch}"] = row
-            log(f"kernel horner_combine (nwin={nwin}, window={window}, batch {batch}): every schedule equal to plain "
-                f"and the oracle; device ms per launch {row}; plain {plain_ms:.4f} ms (batch 2)")
+            got = MK.horner_combine(tb, window)
+            torch.cuda.synchronize()
+            require(all(torch.equal(g, w[:batch]) for g, w in zip(got, want)),
+                    f"horner_combine nwin={nwin} batch {batch}: kernel != plain")
+            by_batch[f"nwin_{nwin}_batch_{batch}"] = device_ms(torch, lambda: MK.horner_combine(tb, window), reps=5,
+                                                               sleep_ms=5.0)
+        log(f"kernel horner_combine (nwin={nwin}, window={window}): equal to plain and the oracle at batch 1 and 2; "
+            f"device ms per launch {by_batch}; plain {plain_ms:.4f} ms (batch 2)")
         if window == 8:  # the decide's shape: one launch for both MSMs
             got = MK.horner_combine(tot, window)
             torch.cuda.synchronize()
@@ -796,7 +781,7 @@ def phase_kernels_decide(torch, dev, rng, results_field):
                 # product levels on one warp's chain: 2 per doubling, 2 per add
                 "critical_path_ms": nwin * (2 * window + 2) * latency, "product_levels": nwin * (2 * window + 2),
             }
-    results["horner_combine"]["variants_device_ms"] = variants
+    results["horner_combine"]["device_ms"] = by_batch
 
     # K7 at B = 2 (the Miller loop's doubled batch) and 4096 (a full card)
     def rand_fq12(batch):
@@ -907,15 +892,9 @@ def phase_kernels_add(torch, dev, rng, results_field):
     strides, against their plain versions bit for bit at every width of
     ``ADD_WIDTHS``, with each operand kind of ``add_operands`` (K5 with masks
     all true, all false and random, and one broadcast along a batch dim),
-    none of the strided or broadcast operands copied; the one-thread
-    schedule they had before (``add_points(schedule="thread")``) too;
-    against the oracle on 64 points.  Then device ms per launch at each
-    width, both schedules in mirrored turns, and the lane schedule at 64,
-    128 and 256 threads per block; the host's enqueue of one call on
-    contiguous and on the bucket tree's strided operands, against the
-    one-thread kernels on contiguous copies (the wrapper before this
-    design); and the chain of one add, measured: one add's launch less an
-    empty launch's, both by ``device_ms``."""
+    none of the strided or broadcast operands copied; against the oracle on
+    64 points.  Then device ms per launch at each width, and the chain of
+    one add (``one_item_chain``)."""
     from snark_verifier_tpu_torch.ops import curve as C
     from snark_verifier_tpu_torch.ops import curve_cuda as CK
     from snark_verifier_tpu_torch.util import bn254
@@ -953,24 +932,17 @@ def phase_kernels_add(torch, dev, rng, results_field):
             kept, _, _, _, _ = CK.point_operands(ins, masks["broadcast"].expand(batch), batch)
             require(all(a is b for a, b in zip(kept, ins)), f"K2/K5 n={n} {kind}: an operand was copied")
             want = CK.g1_add_plain(p, q)
-            for sched in CK.SCHEDULES:
-                got, _ = CK.add_points(None, p, q, sched)
-                require(all(torch.equal(g, w) for g, w in zip(got, want)), f"g1_add n={n} {kind} {sched}: != plain")
             require(all(torch.equal(g, w) for g, w in zip(CK.g1_add(p, q), want)), f"g1_add n={n} {kind}: != plain")
             for mname, m in masks.items():
                 want = CK.g1_add_select_plain(m, p, q)
                 got = CK.g1_add_select(m, p, q)
                 require(all(torch.equal(g, w) for g, w in zip(got, want)),
                         f"g1_add_select n={n} {kind} mask {mname}: != plain")
-                for sched in CK.SCHEDULES[1:]:
-                    got, _ = CK.add_points(m, p, q, sched)
-                    require(all(torch.equal(g, w) for g, w in zip(got, want)),
-                            f"g1_add_select n={n} {kind} mask {mname} ({sched}): != plain")
                 checked += 1
             torch.cuda.synchronize()
     log(f"kernels g1_add / g1_add_select (lanes): equal to plain at widths {ADD_WIDTHS} with affine, projective, "
         f"strided and broadcast operands (none copied), {checked} K5 cases with masks all true, all false, random and "
-        f"broadcast; the one-thread schedule too; both equal to the oracle on 64 points")
+        f"broadcast; both equal to the oracle on 64 points")
 
     latency = results_field["mont_pow"]["product_latency_ms"]
     out = {"g1_add": {}, "g1_add_select": {}}
@@ -978,56 +950,18 @@ def phase_kernels_add(torch, dev, rng, results_field):
         p, q = C.G1(*(c[:n] for c in R2)), C.G1(*(c[:n] for c in Q2))
         m = torch.rand(n, device=dev) < 0.5
         for name, cond in (("g1_add", None), ("g1_add_select", m)):
-            want = (CK.g1_add_plain(p, q) if cond is None else CK.g1_add_select_plain(cond, p, q))
-            # every schedule twice, in mirrored turns (thread, ..., ..., thread)
-            order = (*reversed(CK.SCHEDULES), *CK.SCHEDULES)
-            turns = [(sched, device_ms(torch, lambda: CK.add_points(cond, p, q, sched), reps=50)) for sched in order]
-            per = {sched: statistics.mean(t for k, t in turns if k == sched) for sched in CK.SCHEDULES}
-            sweep = {}
-            for block in CK.ADD_BLOCKS:
-                got, _ = CK.add_points(cond, p, q, CK.SCHEDULES[0], block)
-                torch.cuda.synchronize()
-                require(all(torch.equal(g, w) for g, w in zip(got, want)), f"{name} n={n} block {block}: != plain")
-                sweep[block] = device_ms(torch, lambda: CK.add_points(cond, p, q, CK.SCHEDULES[0], block), reps=50)
-            # one call with its host enqueue (CUDA events), new and old schedule in turns
-            calls = [(sched, cuda_ms(torch, lambda: CK.add_points(cond, p, q, sched)))
-                     for sched in ("thread", CK.SCHEDULES[0], CK.SCHEDULES[0], "thread")]
-            call = {sched: statistics.mean(t for k, t in calls if k == sched) for sched in ("thread", CK.SCHEDULES[0])}
-            # the host's enqueue alone, on contiguous and on the tree's strided operands
-            enqueue = {}
-            for kind, (pk, qk) in (("contiguous", (p, q)), ("strided_tree", add_operands(C, P2, R2, Q2, n)["strided_tree"])):
-                ck = None if cond is None else torch.rand(pk.x.shape[:-1], device=dev) < 0.5
-                turns_h = [(sched, enqueue_ms(torch, lambda: CK.add_points(ck, pk, qk, sched)))
-                           for sched in ("thread", CK.SCHEDULES[0], CK.SCHEDULES[0], "thread")]
-                enqueue[kind] = {sched: statistics.mean(t for k, t in turns_h if k == sched)
-                                 for sched in ("thread", CK.SCHEDULES[0])}
+            ms = device_ms(torch, lambda: CK.add_points(cond, p, q), reps=50)
             b = bound(9 * n * FE_BYTES + (n if cond is not None else 0), MONT_PER["add"] * n)
-            best = min(sweep, key=sweep.get)
-            out[name][n] = {"device_ms": per, "turns_ms": turns, "call_ms": call, "enqueue_ms": enqueue,
-                            "block_sweep_device_ms": sweep, "best": best,
-                            "wrapper_over_best": sweep[CK.ADD_BLOCK] / sweep[best],
-                            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
-            log(f"kernel {name} n={n}: device ms per launch by schedule { {k: round(v, 5) for k, v in per.items()} } "
-                f"(one thread / {CK.SCHEDULES[0]} {per['thread'] / per[CK.SCHEDULES[0]]:.2f}x; turns "
-                f"{[(k, round(t, 5)) for k, t in turns]}); by block {sweep}, best {best}, the wrapper's "
-                f"{CK.ADD_BLOCK} {sweep[CK.ADD_BLOCK] / sweep[best]:.3f}x the best; one call with its enqueue "
-                f"{ {k: round(v, 5) for k, v in call.items()} } ms; host enqueue per call {enqueue} ms; "
-                f"bound {b['bound_ms']:.6f} ms ({b['bound_by']})")
+            out[name][n] = {"device_ms": ms, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
+            log(f"kernel {name} n={n}: device ms per launch {ms:.6f}; bound {b['bound_ms']:.6f} ms ({b['bound_by']})")
     # the chain of one add: a launch of one group less an empty launch, in turns
     one_p, one_q, one_m = C.G1(*(c[:1] for c in R2)), C.G1(*(c[:1] for c in Q2)), torch.ones(1, dtype=torch.bool, device=dev)
     for name, cond in (("g1_add", None), ("g1_add_select", one_m)):
-        turns = []
-        for sched in ("empty", *CK.SCHEDULES, *reversed(CK.SCHEDULES), "empty"):
-            fn = (lambda: torch.cuda._sleep(0)) if sched == "empty" else (lambda: CK.add_points(cond, one_p, one_q, sched))  # noqa: B023
-            turns.append((sched, device_ms(torch, fn, reps=50)))
-        one = {sched: statistics.mean(t for k, t in turns if k == sched) for sched in ("empty", *CK.SCHEDULES)}
-        chain = {sched: one[sched] - one["empty"] for sched in CK.SCHEDULES}
-        log(f"kernel {name}: one add's launch {one} ms (device_ms, in turns); its chain, less the empty launch: "
-            f"8 lanes {chain[CK.SCHEDULES[0]]:.6f} ms, one thread {chain['thread']:.6f} ms; products alone "
-            f"2 x fmul_eo {2 * latency['fmul_eo']:.6f} ms, 12 x fmul {12 * latency['fmul']:.6f} ms")
-        out[name] = {"by_width": out[name], "block": CK.ADD_BLOCK, "group_lanes": CK.GROUP, "one_add_ms": one,
-                     "critical_path_ms": chain[CK.SCHEDULES[0]], "critical_path_thread_ms": chain["thread"],
-                     "products_on_chain_ms": 2 * latency["fmul_eo"], "products_on_chain_thread_ms": 12 * latency["fmul"]}
+        chain = one_item_chain(torch, lambda: CK.add_points(cond, one_p, one_q))  # noqa: B023
+        log(f"kernel {name}: one add's launch less an empty launch {chain} ms (device_ms, in turns); products alone "
+            f"2 x fmul_eo {2 * latency['fmul_eo']:.6f} ms")
+        out[name] = {"by_width": out[name], "block": CK.ADD_BLOCK, "group_lanes": CK.GROUP, "one_add": chain,
+                     "critical_path_ms": chain["chain_ms"], "products_on_chain_ms": 2 * latency["fmul_eo"]}
     return out
 
 
@@ -1298,10 +1232,10 @@ def phase_aggregation(torch, dev, card):
 def phase_kernels_on_path(torch, table, digits):
     """K8 and K9 against their plain versions on the card, bit for bit, on
     the inputs of the outer snark's first two-kernel MSM (captured in its
-    MEGA-off run): one middle window, its Horner step onto the identity (as
-    the MSM's first window runs) and onto a projective accumulator; and K4
-    on the whole MSM against its plain version and K8/K9."""
-    from snark_verifier_tpu_torch.ops import curve as C
+    MEGA-off run): one middle window, its Horner step (``horner_cases``:
+    onto the identity, as the MSM's first window runs, onto a projective
+    accumulator, and the add's edge cases); and K4 on the whole MSM against
+    its plain version and K8/K9."""
     from snark_verifier_tpu_torch.ops import msm_cuda as MK
 
     _, _, n, batch, _ = table.shape
@@ -1334,20 +1268,10 @@ def phase_kernels_on_path(torch, table, digits):
         f"bound {results['msm_window']['bound_ms']:.6f} ms ({results['msm_window']['bound_by']})")
 
     acc = MK.msm_window(table, dig_next)  # a projective accumulator (z != 1)
-    errs = []
-    for start in (C.g1_identity((batch,), table.device), acc):
-        got, want = MK.msm_horner(start, contrib), MK.msm_horner_plain(start, contrib)
-        torch.cuda.synchronize()
-        require(all(torch.equal(g, x) for g, x in zip(got, want)), "msm_horner (outer snark's shape): kernel != plain")
-        errs.append(max_abs_err(torch, got, want))
-    ms, plain_ms = cuda_ms(torch, lambda: MK.msm_horner(acc, contrib)), cuda_ms(torch, lambda: MK.msm_horner_plain(acc, contrib))
-    results["msm_horner"] = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "shape": {"B": batch},
-                             **bound(9 * batch * FE_BYTES, (WINDOW_DBLS * MONT_PER["double"] + MONT_PER["add"]) * batch),
-                             **horner_chain(torch, acc, contrib)}
-    log(f"kernel msm_horner (outer snark's MSM: B={batch}, from the identity and from a projective accumulator): "
-        f"equal to plain; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, one proof's chain "
-        f"{results['msm_horner']['chain_ms']:.6f} ms, "
-        f"bound {results['msm_horner']['bound_ms']:.6f} ms ({results['msm_horner']['bound_by']})")
+    err = horner_cases(torch, acc, contrib, f"outer snark's MSM: B={batch}")
+    results["msm_horner"] = {**horner_result(torch, acc, contrib, err), "shape": {"B": batch}}
+    log(f"kernel msm_horner (outer snark's MSM: B={batch}): equal to plain (projective, from the identity, identity "
+        f"contrib, contrib = +-16 acc); {horner_summary(results['msm_horner'])}")
     return results, scan
 
 
@@ -1526,8 +1450,7 @@ def profile_run(torch, label, anchor, fn, args, warm_s: float, ranges=()) -> dic
 
 def log_ptxas(path) -> dict:
     """Registers, stack and spills per kernel from the build log; returns
-    them by kernel name (a schedule kept for comparison, such as K2/K5's
-    ``*_kernel_thread``, under its entry's own suffix)."""
+    them by kernel name (a template instance under its template argument)."""
     found = {}
     if not path.exists():  # the library existed: nothing was compiled in this run
         return found
@@ -1535,9 +1458,9 @@ def log_ptxas(path) -> dict:
     for line in path.read_text().splitlines():
         if "Compiling entry function" in line:
             name = next((k for k in KERNELS if f"{k}_kernel" in line), None)
-            variant = name and re.search(rf"{name}_kernel(_[a-z]+|I[^E]*E)?", line).group(1)
-            if variant:  # a kept schedule (_thread) or a template argument (ILb1E: true)
-                name = f"{name} ({variant.strip('_')})"
+            variant = name and re.search(rf"{name}_kernel(I[^E]*E)?", line).group(1)
+            if variant:  # a template argument (ILb1E: true)
+                name = f"{name} ({variant})"
         elif name and ("spill" in line or "registers" in line):
             log(f"ptxas {name}: {line.strip()}")
             found.setdefault(name, []).append(line.strip())
@@ -1612,18 +1535,6 @@ def phase_decide(torch, dev, card, out, wrong_row, verify_s):
         f"{[round(t, 4) for t in times]}; verify + decide {B / (verify_s + warm):.1f} verified proofs/s "
         f"(verify {verify_s:.4f} s + decide {warm:.4f} s); peak memory {peak / 2**20:.1f} MiB, on {card}")
     per_launch, least = profile_run(torch, "decide", "final_exp", decider, good_args, warm)
-    # the same decide with the one-thread K2/K5 kernels on contiguous copies
-    # of strided operands (the wrappers before the 8-lane design), then the
-    # wrappers' again
-    launch = CK.add_points
-    for sched in CK.SCHEDULES[1:]:
-        CK.add_points = lambda cond, p, q, *a, **k: launch(cond, p, q, sched)  # noqa: B023
-        try:
-            decider(*good_args)
-            profile_run(torch, f"decide (K2/K5 {sched})", "final_exp", decider, good_args, warm)
-        finally:
-            CK.add_points = launch
-    profile_run(torch, "decide (again)", "final_exp", decider, good_args, warm)
 
     proofs = [fx.proofs[i % len(fx.proofs)] for i in range(DECIDE_PROOFS)]
     instances = [fx.instances[i % len(fx.proofs)] for i in range(DECIDE_PROOFS)]
@@ -1689,24 +1600,19 @@ def phase_msm(torch, dev, card, rng):
 def add_path_totals(name: str, floor) -> dict:
     """K2's or K5's launches, device ms (torch.profiler) and bound on the
     verify and the decide: the bound as the sum over the path's launches of
-    max(that launch's bound, the per-launch floor), and the decide's device
-    time with each schedule from the same call."""
-    from snark_verifier_tpu_torch.ops import curve_cuda as CK
-
+    max(that launch's bound, the per-launch floor)."""
     totals = {}
     for path, widths in ADD_PATH_WIDTHS.items():
         ns = widths[name]
         if not ns:
             continue
         per = [bound(9 * n * FE_BYTES + (n if name == "g1_add_select" else 0), MONT_PER["add"] * n)["bound_ms"] for n in ns]
-        labels = {"slice"} if path == "verify" else {"decide", "decide (again)",
-                                                     *(f"decide (K2/K5 {k})" for k in CK.SCHEDULES[1:])}
-        prof = {label: PROFILES.get(label, {}).get("by_kernel", {}).get(name) for label in sorted(labels)}
+        prof = PROFILES.get("slice" if path == "verify" else "decide", {}).get("by_kernel", {}).get(name)
         totals[path] = {"launches": len(ns), "widths": ns, "bound_sum_ms": sum(per),
                         "bound_with_floor_sum_ms": None if floor is None else sum(max(b, floor) for b in per),
                         "profile": prof, "operand_folds": widths["folds"]}
         log(f"{name} on the {path}: {len(ns)} launches, bound summed {sum(per):.6f} ms "
-            f"(with the floor {totals[path]['bound_with_floor_sum_ms']}); device time by schedule {prof}")
+            f"(with the floor {totals[path]['bound_with_floor_sum_ms']}); device time {prof}")
     return totals
 
 

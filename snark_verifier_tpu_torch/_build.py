@@ -37,12 +37,10 @@ _INT = ctypes.c_int
 SIGNATURES = {
     "svtpu_mont_mul": [_P, _P, _P, _I64, _P, _INT, _P],
     "svtpu_mont_pow": [_P, _P, _P, _I64, _P, _P, _INT, _INT, _P],
-    "svtpu_g1_add": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P, _INT, _P],
-    "svtpu_g1_double": [_P, _P, _P, _P, _P, _P, _I64, _P, _INT, _INT, _P],
+    "svtpu_g1_double": [_P, _P, _P, _P, _P, _P, _I64, _P, _INT, _P],
     "svtpu_msm_scan": [_P, _P, _P, _P, _P, _I64, _INT, _INT, _INT, _P, _P],
-    "svtpu_g1_add_select": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P, _INT, _P],
     "svtpu_g1_add_lanes": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _P, _INT, _P],
-    "svtpu_horner_combine": [_P, _P, _P, _P, _P, _P, _I64, _INT, _INT, _P, _INT, _P],
+    "svtpu_horner_combine": [_P, _P, _P, _P, _P, _P, _I64, _INT, _INT, _P, _P],
     "svtpu_fq12_mul": [_P, _P, _P, _I64, _P, _P],
     "svtpu_miller_loop": [_P, _P, _P, _P, _P, _P, _I64, _I64, _INT, _P, _P],
     "svtpu_final_exp": [_P, _P, _P, _P, _P, _P, _I64, ctypes.c_uint64, _P, _P],

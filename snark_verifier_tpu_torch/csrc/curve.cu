@@ -17,7 +17,7 @@
 // A point add is 12 CIOS multiplies (~3,200 32-bit multiplies) against 576
 // bytes of input and 384 of output, far from the card's bandwidth; its
 // bound by operations is 6.2 us at 32,768 adds.  With one thread per add
-// (kept below as the *_thread kernels, for chip_smoke.py's comparison only)
+// (the schedule before this one, since deleted)
 // a launch took about one thread's chain of 12 dependent fmul (7.1 us of
 // products alone) plus ~25 dependent modular adds: 16-17 us per launch at
 // the decide's 8192 adds and fewer, which fill 64 blocks of 128 threads,
@@ -91,22 +91,6 @@ struct AddOperands {
   int64_t n, inner;
 };
 
-__device__ __forceinline__ svtpu::G1 load_point(const int64_t* x, const int64_t* y,
-                                                const int64_t* z, int64_t i) {
-  svtpu::G1 p;
-  p.x = svtpu::load_fe(x + 16 * i);
-  p.y = svtpu::load_fe(y + 16 * i);
-  p.z = svtpu::load_fe(z + 16 * i);
-  return p;
-}
-
-__device__ __forceinline__ void store_point(int64_t* x, int64_t* y, int64_t* z, int64_t i,
-                                            const svtpu::G1& p) {
-  svtpu::store_fe(x + 16 * i, p.x);
-  svtpu::store_fe(y + 16 * i, p.y);
-  svtpu::store_fe(z + 16 * i, p.z);
-}
-
 __device__ __forceinline__ void store_word(int64_t* dst, int64_t i, int k, uint32_t w) {
   longlong2 v;
   v.x = static_cast<long long>(w & 0xFFFFu);
@@ -162,50 +146,6 @@ __global__ void __launch_bounds__(ADD_BLOCK_MAX)
     g1_add_select_kernel(const __grid_constant__ AddOperands a, int64_t* __restrict__ ox, int64_t* __restrict__ oy,
                          int64_t* __restrict__ oz, svtpu::Field f) {
   add_lanes<true>(a, ox, oy, oz, f);
-}
-
-// The one-thread schedules K2 and K5 had before their redesign: contiguous
-// inputs, svtpu::g1_add on one thread.  Only chip_smoke.py launches them,
-// to time the old schedule beside the new one in one run.
-__global__ void g1_add_kernel_thread(const int64_t* __restrict__ x1, const int64_t* __restrict__ y1,
-                                     const int64_t* __restrict__ z1, const int64_t* __restrict__ x2,
-                                     const int64_t* __restrict__ y2, const int64_t* __restrict__ z2,
-                                     int64_t* __restrict__ ox, int64_t* __restrict__ oy,
-                                     int64_t* __restrict__ oz, int64_t n, svtpu::Field f) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const svtpu::G1 p = load_point(x1, y1, z1, i);
-  const svtpu::G1 q = load_point(x2, y2, z2, i);
-  store_point(ox, oy, oz, i, svtpu::g1_add(p, q, f));
-}
-
-__global__ void g1_add_select_kernel_thread(const int64_t* __restrict__ x1,
-                                            const int64_t* __restrict__ y1,
-                                            const int64_t* __restrict__ z1,
-                                            const int64_t* __restrict__ x2,
-                                            const int64_t* __restrict__ y2,
-                                            const int64_t* __restrict__ z2,
-                                            const uint8_t* __restrict__ mask,
-                                            int64_t* __restrict__ ox, int64_t* __restrict__ oy,
-                                            int64_t* __restrict__ oz, int64_t n, svtpu::Field f) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const svtpu::G1 p = load_point(x1, y1, z1, i);
-  const svtpu::G1 q = load_point(x2, y2, z2, i);
-  const svtpu::G1 s = svtpu::g1_add(p, q, f);
-  store_point(ox, oy, oz, i, mask[i] ? s : p);
-}
-
-// The one-thread schedule K3 had before its redesign: svtpu::g1_double on
-// one thread.  Only chip_smoke.py launches it, to time the old schedule
-// beside the new one in one run.
-__global__ void g1_double_kernel_thread(const int64_t* __restrict__ x, const int64_t* __restrict__ y,
-                                        const int64_t* __restrict__ z, int64_t* __restrict__ ox,
-                                        int64_t* __restrict__ oy, int64_t* __restrict__ oz, int64_t n,
-                                        svtpu::Field f) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  store_point(ox, oy, oz, i, svtpu::g1_double(load_point(x, y, z, i), f));
 }
 
 // K3 on groups of 4 lanes: point i = (block * blockDim + thread) / 4, lane
@@ -285,59 +225,18 @@ extern "C" int svtpu_g1_add_lanes(const void* const* coords, const int64_t* stri
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int svtpu_g1_add(const void* x1, const void* y1, const void* z1, const void* x2,
-                            const void* y2, const void* z2, void* ox, void* oy, void* oz,
-                            int64_t n, const void* field_words, int block, void* stream) {
-  if (n <= 0) return 0;
-  const svtpu::Field f = svtpu::field_from_host(static_cast<const uint32_t*>(field_words));
-  g1_add_kernel_thread<<<svtpu::grid_for(n, block), block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int64_t*>(x1), static_cast<const int64_t*>(y1),
-      static_cast<const int64_t*>(z1), static_cast<const int64_t*>(x2),
-      static_cast<const int64_t*>(y2), static_cast<const int64_t*>(z2),
-      static_cast<int64_t*>(ox), static_cast<int64_t*>(oy), static_cast<int64_t*>(oz), n, f);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// K3 on groups of 4 lanes (lanes 1), `block` threads per block (a multiple
-// of 32 up to 256), on contiguous (n, 16) coordinates; lanes 0 launches the
-// one-thread kernel instead (chip_smoke.py's comparison).
+// K3 on groups of 4 lanes, `block` threads per block (a multiple of 32 up to
+// 256), on contiguous (n, 16) coordinates.
 extern "C" int svtpu_g1_double(const void* x, const void* y, const void* z, void* ox, void* oy,
-                               void* oz, int64_t n, const void* field_words, int lanes, int block,
-                               void* stream) {
+                               void* oz, int64_t n, const void* field_words, int block, void* stream) {
   if (n <= 0) return 0;
   if (block <= 0 || block % 32 != 0 || block > DBL_BLOCK_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const svtpu::Field f = svtpu::field_from_host(static_cast<const uint32_t*>(field_words));
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t* px = static_cast<const int64_t*>(x);
-  const int64_t* py = static_cast<const int64_t*>(y);
-  const int64_t* pz = static_cast<const int64_t*>(z);
-  int64_t* qx = static_cast<int64_t*>(ox);
-  int64_t* qy = static_cast<int64_t*>(oy);
-  int64_t* qz = static_cast<int64_t*>(oz);
-  if (lanes) {
-    const size_t smem = static_cast<size_t>(block / svtpu::DBL_GROUP) * svtpu::DBL_SLOTS * sizeof(svtpu::Fe);
-    g1_double_kernel<<<svtpu::grid_for(n * svtpu::DBL_GROUP, block), block, smem, s>>>(px, py, pz, qx, qy, qz, n,
-                                                                                        f);
-  } else {
-    g1_double_kernel_thread<<<svtpu::grid_for(n, block), block, 0, s>>>(px, py, pz, qx, qy, qz, n, f);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int svtpu_g1_add_select(const void* x1, const void* y1, const void* z1, const void* x2,
-                                   const void* y2, const void* z2, const void* mask, void* ox,
-                                   void* oy, void* oz, int64_t n, const void* field_words,
-                                   int block, void* stream) {
-  if (n <= 0) return 0;
-  const svtpu::Field f = svtpu::field_from_host(static_cast<const uint32_t*>(field_words));
-  g1_add_select_kernel_thread<<<svtpu::grid_for(n, block), block, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int64_t*>(x1), static_cast<const int64_t*>(y1),
-      static_cast<const int64_t*>(z1), static_cast<const int64_t*>(x2),
-      static_cast<const int64_t*>(y2), static_cast<const int64_t*>(z2),
-      static_cast<const uint8_t*>(mask), static_cast<int64_t*>(ox), static_cast<int64_t*>(oy),
-      static_cast<int64_t*>(oz), n, f);
+  const size_t smem = static_cast<size_t>(block / svtpu::DBL_GROUP) * svtpu::DBL_SLOTS * sizeof(svtpu::Fe);
+  g1_double_kernel<<<svtpu::grid_for(n * svtpu::DBL_GROUP, block), block, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(x), static_cast<const int64_t*>(y), static_cast<const int64_t*>(z),
+      static_cast<int64_t*>(ox), static_cast<int64_t*>(oy), static_cast<int64_t*>(oz), n, f);
   return static_cast<int>(cudaGetLastError());
 }

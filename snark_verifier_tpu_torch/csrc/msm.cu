@@ -60,10 +60,9 @@
 //   (c) the product is fmul_eo (bn254.cuh: two carry chains per row), so
 //       the chain is 576 product latencies at window 8, against 8-12
 //       products per point operation on one thread before.
-// kVariant 0 keeps the one-thread kernel (device loads in the chain, fmul),
-// 1 is (a) + (b) with fmul, 2 is (a) + (b) + (c); the wrapper launches 2,
-// chip_smoke.py times all three: 2.16, 0.556 and 0.406 ms per launch at
-// nwin 32, window 8 on an H100 SXM (700 W), batch 1 or 2 alike.
+// On an H100 SXM (700 W, chip_smoke.py) a launch took 0.406 ms at nwin 32,
+// window 8, batch 1 or 2 alike, against 2.16 ms with one thread per MSM
+// and 0.556 with (a) + (b) and fmul; those two schedules are gone.
 
 // K8 replaces snark_verifier_tpu/ops/msm_pallas.py _window_kernel_body
 // (_window_call) and K9 replaces _horner_kernel_body (_horner_call): the
@@ -93,7 +92,23 @@
 // from the group's ballots, no carry chain) and writes it to the q slots.
 // On an H100 SXM (700 W, chip_smoke.py) a launch takes 0.069 ms at B = 8,
 // n = 36 (1.97 us a step) against 0.306 on one thread, and 0.035 against
-// 0.174 ms at B = 1820, n = 18.  K9 keeps one thread per proof.
+// 0.174 ms at B = 1820, n = 18.
+//
+// K9 is 5 point operations in one chain per proof; on one thread (12 or 8
+// fmul each, the operands loaded from device memory) a launch took 0.043
+// ms at B = 8, the chain alone.  So K9 runs one proof on a group of 8
+// lanes too, K8's group and block: the group loads acc into shared memory
+// (lane k its 16-byte limb pair of each coordinate) and contrib into
+// registers, runs 4 g1_double_group (bn254.cuh: two levels of four fmul_eo
+// products on 4 lanes) and one g1_add_group.  g1_double_group takes exactly
+// 4 lanes, so each half of the group doubles the same point in a slot set
+// of its own (no slot has two writers); after each doubling lanes 0-2 of
+// each half write the result's x, y, z back to its p slots.  Contrib reaches
+// the add's q slots only after the fourth doubling, whose level-1 products
+// sit in slots 3-6 of half 0's set, the add's slots.  On an H100 SXM (700
+// W, chip_smoke.py) a launch takes 0.0093 ms at B = 8 and 0.0097 at B =
+// 1820, against 0.0429 and 0.0490 on one thread; one proof's chain is
+// 0.0075 ms against 0.0411.
 //
 // Layouts: table (9, 3, n, B, 16) int64 (entry k, coordinate, point, proof,
 // limb); digits (B, n, nwin) int64 signed windows in [-8, 8], least
@@ -169,12 +184,7 @@ msm_scan_kernel(const int64_t* __restrict__ table, const int64_t* __restrict__ d
   svtpu::store_fe(oz + 16 * b, acc.z);
 }
 
-constexpr int HORNER_WARP = 32;  // one warp per MSM (variants 1, 2)
-
-template <bool kEvenOdd>
-__device__ __forceinline__ svtpu::Fe horner_mul(const svtpu::Fe& a, const svtpu::Fe& b, const svtpu::Field& f) {
-  return kEvenOdd ? svtpu::fmul_eo(a, b, f) : svtpu::fmul(a, b, f);
-}
+constexpr int HORNER_WARP = 32;  // one warp per MSM
 
 // v[lane] for lanes 0..n-1 (lanes beyond n take v[n - 1]), as selects: no
 // lane diverges.
@@ -191,10 +201,10 @@ __device__ __forceinline__ svtpu::Fe pick(int lane, const svtpu::Fe (&v)[N]) {
 
 // One level of N independent products, product k on lane k; every lane
 // returns all N results (through xs, N entries of shared memory).
-template <bool kEvenOdd, int N>
+template <int N>
 __device__ __forceinline__ void warp_level(svtpu::Fe (&r)[N], const svtpu::Fe (&x)[N], const svtpu::Fe (&y)[N],
                                            svtpu::Fe* xs, int lane, const svtpu::Field& f) {
-  const svtpu::Fe prod = horner_mul<kEvenOdd>(pick(lane, x), pick(lane, y), f);
+  const svtpu::Fe prod = svtpu::fmul_eo(pick(lane, x), pick(lane, y), f);
   if (lane < N) xs[lane] = prod;
   __syncwarp();
 #pragma unroll
@@ -203,13 +213,12 @@ __device__ __forceinline__ void warp_level(svtpu::Fe (&r)[N], const svtpu::Fe (&
 }
 
 // RCB15 alg. 9 (svtpu::g1_double), its 8 products in two levels of 4.
-template <bool kEvenOdd>
 __device__ __forceinline__ svtpu::G1 warp_double(const svtpu::G1& p, svtpu::Fe* xs, int lane,
                                                  const svtpu::Field& f) {
   using svtpu::fadd;
   using svtpu::fsub;
   svtpu::Fe r[4];
-  warp_level<kEvenOdd, 4>(r, {p.y, p.y, p.z, p.x}, {p.y, p.z, p.z, p.y}, xs, lane, f);
+  warp_level<4>(r, {p.y, p.y, p.z, p.x}, {p.y, p.z, p.z, p.y}, xs, lane, f);
   const svtpu::Fe t0 = r[0], t1 = r[1], xy = r[3];
   svtpu::Fe z3 = fadd(t0, t0, f);
   z3 = fadd(z3, z3, f);
@@ -218,7 +227,7 @@ __device__ __forceinline__ svtpu::G1 warp_double(const svtpu::G1& p, svtpu::Fe* 
   const svtpu::Fe y3 = fadd(t0, t2, f);
   const svtpu::Fe t1b = fadd(t2, t2, f);
   const svtpu::Fe t0b = fsub(t0, fadd(t1b, t2, f), f);
-  warp_level<kEvenOdd, 4>(r, {t2, t1, t0b, t0b}, {z3, z3, y3, xy}, xs, lane, f);
+  warp_level<4>(r, {t2, t1, t0b, t0b}, {z3, z3, y3, xy}, xs, lane, f);
   svtpu::G1 out;
   out.x = fadd(r[3], r[3], f);
   out.y = fadd(r[2], r[0], f);
@@ -227,13 +236,12 @@ __device__ __forceinline__ svtpu::G1 warp_double(const svtpu::G1& p, svtpu::Fe* 
 }
 
 // RCB15 alg. 7 (svtpu::g1_add), its 12 products in two levels of 6.
-template <bool kEvenOdd>
 __device__ __forceinline__ svtpu::G1 warp_add(const svtpu::G1& p, const svtpu::G1& q, svtpu::Fe* xs, int lane,
                                               const svtpu::Field& f) {
   using svtpu::fadd;
   using svtpu::fsub;
   svtpu::Fe r[6];
-  warp_level<kEvenOdd, 6>(r, {p.x, p.y, p.z, fadd(p.x, p.y, f), fadd(p.y, p.z, f), fadd(p.x, p.z, f)},
+  warp_level<6>(r, {p.x, p.y, p.z, fadd(p.x, p.y, f), fadd(p.y, p.z, f), fadd(p.x, p.z, f)},
                           {q.x, q.y, q.z, fadd(q.x, q.y, f), fadd(q.y, q.z, f), fadd(q.x, q.z, f)}, xs, lane, f);
   svtpu::Fe t0 = r[0], t1 = r[1], t2 = r[2];
   const svtpu::Fe t3 = fsub(r[3], fadd(t0, t1, f), f);
@@ -245,7 +253,7 @@ __device__ __forceinline__ svtpu::G1 warp_add(const svtpu::G1& p, const svtpu::G
   const svtpu::Fe z3 = fadd(t1, t2, f);
   t1 = fsub(t1, t2, f);
   y3 = svtpu::mul_b3(y3, f);
-  warp_level<kEvenOdd, 6>(r, {t3, t4, t1, y3, z3, t0}, {t1, y3, z3, t0, t4, t3}, xs, lane, f);
+  warp_level<6>(r, {t3, t4, t1, y3, z3, t0}, {t1, y3, z3, t0, t4, t3}, xs, lane, f);
   svtpu::G1 out;
   out.x = fsub(r[0], r[1], f);
   out.y = fadd(r[2], r[3], f);
@@ -254,77 +262,41 @@ __device__ __forceinline__ svtpu::G1 warp_add(const svtpu::G1& p, const svtpu::G
 }
 
 // totals: three (batch, nwin, 16) coordinate tensors, window 0 least
-// significant; outputs three (batch, 16) tensors.  Variant 0: one thread
-// per MSM; variants 1, 2: one warp per MSM (block), dynamic shared memory
-// nwin * 3 * 32 bytes of staged totals plus 6 exchange slots.
-template <int kVariant>
+// significant; outputs three (batch, 16) tensors.  One warp per MSM
+// (block), dynamic shared memory nwin * 3 * 32 bytes of staged totals plus
+// 6 exchange slots.
 __global__ void __launch_bounds__(HORNER_WARP) horner_combine_kernel(
     const int64_t* __restrict__ tx, const int64_t* __restrict__ ty, const int64_t* __restrict__ tz,
-    int64_t* __restrict__ ox, int64_t* __restrict__ oy, int64_t* __restrict__ oz, int64_t batch, int nwin,
-    int window, svtpu::Field f) {
-  if constexpr (kVariant == 0) {
-    const int64_t b = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-    if (b >= batch) return;
-    svtpu::G1 acc = svtpu::g1_identity(f);
-    for (int w = nwin - 1; w >= 0; --w) {
-      for (int k = 0; k < window; ++k) acc = svtpu::g1_double(acc, f);
-      const int64_t off = (b * nwin + w) * 16;
-      svtpu::G1 t;
-      t.x = svtpu::load_fe(tx + off);
-      t.y = svtpu::load_fe(ty + off);
-      t.z = svtpu::load_fe(tz + off);
-      acc = svtpu::g1_add(acc, t, f);
-    }
+    int64_t* __restrict__ ox, int64_t* __restrict__ oy, int64_t* __restrict__ oz, int nwin, int window,
+    svtpu::Field f) {
+  extern __shared__ svtpu::Fe horner_smem[];
+  svtpu::Fe* tot = horner_smem;             // (nwin, 3): the staged totals
+  svtpu::Fe* xs = horner_smem + 3 * nwin;  // the products of one level
+  const int lane = threadIdx.x;
+  const int64_t b = blockIdx.x;
+  // (a) stage: word q of the totals is word q % 8 of coordinate (q / 8) % 3
+  // of window q / 24; 8 consecutive lanes read one coordinate's 128 bytes
+  for (int q = lane; q < 24 * nwin; q += HORNER_WARP) {
+    const int v = q / 24, c = (q / 8) % 3, k = q % 8;
+    const int64_t* src = c == 0 ? tx : (c == 1 ? ty : tz);
+    const longlong2 two = reinterpret_cast<const longlong2*>(src + (b * nwin + v) * 16)[k];
+    tot[3 * v + c].w[k] = static_cast<uint32_t>(two.x) | (static_cast<uint32_t>(two.y) << 16);
+  }
+  __syncwarp();
+  svtpu::G1 acc = svtpu::g1_identity(f);
+  for (int w = nwin - 1; w >= 0; --w) {
+    for (int k = 0; k < window; ++k) acc = warp_double(acc, xs, lane, f);
+    svtpu::G1 t;
+    t.x = tot[3 * w];
+    t.y = tot[3 * w + 1];
+    t.z = tot[3 * w + 2];
+    acc = warp_add(acc, t, xs, lane, f);
+  }
+  if (lane == 0) {
     svtpu::store_fe(ox + 16 * b, acc.x);
     svtpu::store_fe(oy + 16 * b, acc.y);
     svtpu::store_fe(oz + 16 * b, acc.z);
-  } else {
-    constexpr bool kEvenOdd = kVariant == 2;
-    extern __shared__ svtpu::Fe horner_smem[];
-    svtpu::Fe* tot = horner_smem;             // (nwin, 3): the staged totals
-    svtpu::Fe* xs = horner_smem + 3 * nwin;  // the products of one level
-    const int lane = threadIdx.x;
-    const int64_t b = blockIdx.x;
-    // (a) stage: word q of the totals is word q % 8 of coordinate (q / 8) % 3
-    // of window q / 24; 8 consecutive lanes read one coordinate's 128 bytes
-    for (int q = lane; q < 24 * nwin; q += HORNER_WARP) {
-      const int v = q / 24, c = (q / 8) % 3, k = q % 8;
-      const int64_t* src = c == 0 ? tx : (c == 1 ? ty : tz);
-      const longlong2 two = reinterpret_cast<const longlong2*>(src + (b * nwin + v) * 16)[k];
-      tot[3 * v + c].w[k] = static_cast<uint32_t>(two.x) | (static_cast<uint32_t>(two.y) << 16);
-    }
-    __syncwarp();
-    svtpu::G1 acc = svtpu::g1_identity(f);
-    for (int w = nwin - 1; w >= 0; --w) {
-      for (int k = 0; k < window; ++k) acc = warp_double<kEvenOdd>(acc, xs, lane, f);
-      svtpu::G1 t;
-      t.x = tot[3 * w];
-      t.y = tot[3 * w + 1];
-      t.z = tot[3 * w + 2];
-      acc = warp_add<kEvenOdd>(acc, t, xs, lane, f);
-    }
-    if (lane == 0) {
-      svtpu::store_fe(ox + 16 * b, acc.x);
-      svtpu::store_fe(oy + 16 * b, acc.y);
-      svtpu::store_fe(oz + 16 * b, acc.z);
-    }
   }
-}
-
-__device__ __forceinline__ svtpu::G1 load_g1(const int64_t* x, const int64_t* y,
-                                              const int64_t* z, int64_t off) {
-  svtpu::G1 p;
-  p.x = svtpu::load_fe(x + off);
-  p.y = svtpu::load_fe(y + off);
-  p.z = svtpu::load_fe(z + off);
-  return p;
-}
-
-__device__ __forceinline__ void store_g1(int64_t* x, int64_t* y, int64_t* z, int64_t off,
-                                         const svtpu::G1& p) {
-  svtpu::store_fe(x + off, p.x);
-  svtpu::store_fe(y + off, p.y);
-  svtpu::store_fe(z + off, p.z);
 }
 
 constexpr int WINDOW_GROUP = 8;       // K8's lanes per proof: one g1_add_group
@@ -358,6 +330,17 @@ __device__ __forceinline__ uint32_t neg_word(uint32_t y, uint32_t pk, int k, int
   const unsigned any = gen | prop;
   const uint32_t borrow = (((any + gen) ^ any ^ gen) >> k) & 1u;
   return nonzero ? pk - y - borrow : 0u;
+}
+
+// Limb pair k of row b of a (B, 16) coordinate tensor as one 32-bit word.
+__device__ __forceinline__ uint32_t load_word(const int64_t* src, int64_t b, int k) {
+  const longlong2 v = reinterpret_cast<const longlong2*>(src + 16 * b)[k];
+  return static_cast<uint32_t>(v.x) | (static_cast<uint32_t>(v.y) << 16);
+}
+
+__device__ __forceinline__ void store_word(int64_t* dst, int64_t b, int k, uint32_t w) {
+  reinterpret_cast<longlong2*>(dst + 16 * b)[k] =
+      make_longlong2(static_cast<long long>(w & 0xFFFFu), static_cast<long long>(w >> 16));
 }
 
 __device__ __forceinline__ void put_words(uint32_t* words, int k, const uint32_t (&w)[3]) {
@@ -424,27 +407,57 @@ __global__ void __launch_bounds__(WINDOW_BLOCK_MAX)
     __syncwarp();  // the slots are written, and every lane read the add's products
   }
   if (!live) return;
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    const uint32_t v = words[c * svtpu::NW + k];
-    int64_t* out = c == 0 ? ox : (c == 1 ? oy : oz);
-    reinterpret_cast<longlong2*>(out + 16 * b)[k] =
-        make_longlong2(static_cast<long long>(v & 0xFFFFu), static_cast<long long>(v >> 16));
-  }
+  store_word(ox, b, k, words[k]);
+  store_word(oy, b, k, words[svtpu::NW + k]);
+  store_word(oz, b, k, words[2 * svtpu::NW + k]);
 }
 
-// acc, contrib: three (B, 16) each; outputs three (B, 16).
-__global__ void msm_horner_kernel(const int64_t* __restrict__ ax, const int64_t* __restrict__ ay,
-                                  const int64_t* __restrict__ az, const int64_t* __restrict__ cx,
-                                  const int64_t* __restrict__ cy, const int64_t* __restrict__ cz,
-                                  int64_t* __restrict__ ox, int64_t* __restrict__ oy,
-                                  int64_t* __restrict__ oz, int64_t batch, svtpu::Field f) {
-  const int64_t b = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (b >= batch) return;
-  svtpu::G1 acc = load_g1(ax, ay, az, 16 * b);
-  for (int k = 0; k < 4; ++k) acc = svtpu::g1_double(acc, f);
-  acc = svtpu::g1_add(acc, load_g1(cx, cy, cz, 16 * b), f);
-  store_g1(ox, oy, oz, 16 * b, acc);
+// K9's slots per group: the add's (the first DBL_SLOTS of them half 0's
+// doubling set), then half 1's doubling set.
+constexpr int HORNER_SLOTS = svtpu::ADD_SLOTS + svtpu::DBL_SLOTS;
+
+// acc, contrib: three (B, 16) each; outputs three (B, 16).  Proof b =
+// (block * blockDim + thread) / 8, lane k = thread % 8, half k / 4 and role
+// k % 4 in it; a group past the end runs the last proof and stores nothing,
+// so every lane of every warp reaches the __syncwarp()s.
+__global__ void __launch_bounds__(WINDOW_BLOCK_MAX)
+    msm_horner_kernel(const int64_t* __restrict__ ax, const int64_t* __restrict__ ay, const int64_t* __restrict__ az,
+                      const int64_t* __restrict__ cx, const int64_t* __restrict__ cy, const int64_t* __restrict__ cz,
+                      int64_t* __restrict__ ox, int64_t* __restrict__ oy, int64_t* __restrict__ oz, int64_t batch,
+                      svtpu::Field f) {
+  extern __shared__ uint4 horner_slots[];
+  const int t = threadIdx.x, k = t & (WINDOW_GROUP - 1), role = k & (svtpu::DBL_GROUP - 1);
+  svtpu::Fe* s = reinterpret_cast<svtpu::Fe*>(horner_slots) + (t / WINDOW_GROUP) * HORNER_SLOTS;
+  svtpu::Fe* d = s + (k / svtpu::DBL_GROUP) * svtpu::ADD_SLOTS;  // this half's doubling set
+  uint32_t* words = reinterpret_cast<uint32_t*>(s);
+  const int64_t g = (static_cast<int64_t>(blockIdx.x) * blockDim.x + t) / WINDOW_GROUP;
+  const bool live = g < batch;
+  const int64_t b = live ? g : batch - 1;
+  const int64_t* const acc_in[3] = {ax, ay, az};
+  const int64_t* const contrib_in[3] = {cx, cy, cz};
+  uint32_t q[3];  // word k of contrib's coordinates, off the chain until the add
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const uint32_t w = load_word(acc_in[c], b, k);
+    q[c] = load_word(contrib_in[c], b, k);
+    words[c * svtpu::NW + k] = w;                      // half 0's p slots
+    words[(svtpu::ADD_SLOTS + c) * svtpu::NW + k] = w;  // half 1's
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const svtpu::G1 r = svtpu::g1_double_group(d, role, FULL_WARP, f);
+    // the p slots were last read before the doubling's first __syncwarp,
+    // slots 3-6 (the add's q slots) before its last
+    if (role < 3) svtpu::sts_fe(d + role, svtpu::fe_sel(role == 0, r.x, svtpu::fe_sel(role == 1, r.y, r.z)));
+    if (i == 3) put_words(words + 3 * svtpu::NW, k, q);
+    __syncwarp();
+  }
+  const svtpu::G1 acc = svtpu::g1_add_group<WINDOW_GROUP>(s, k, FULL_WARP, f);
+  if (!live) return;
+  store_word(ox, b, k, svtpu::fe_word(acc.x, k));
+  store_word(oy, b, k, svtpu::fe_word(acc.y, k));
+  store_word(oz, b, k, svtpu::fe_word(acc.z, k));
 }
 
 }  // namespace
@@ -472,32 +485,16 @@ extern "C" int svtpu_msm_scan(const void* table, const void* digits, void* ox, v
   return static_cast<int>(cudaGetLastError());
 }
 
-// variant: 0 one thread per MSM (fmul), 1 one warp per MSM (fmul), 2 one
-// warp per MSM (fmul_eo); see the note at the top.
 extern "C" int svtpu_horner_combine(const void* tx, const void* ty, const void* tz, void* ox,
                                     void* oy, void* oz, int64_t batch, int nwin, int window,
-                                    const void* field_words, int variant, void* stream) {
+                                    const void* field_words, void* stream) {
   if (batch <= 0) return 0;
-  if (nwin < 1 || nwin > 256 || variant < 0 || variant > 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (nwin < 1 || nwin > 256) return static_cast<int>(cudaErrorInvalidValue);
   const svtpu::Field f = svtpu::field_from_host(static_cast<const uint32_t*>(field_words));
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t* x = static_cast<const int64_t*>(tx);
-  const int64_t* y = static_cast<const int64_t*>(ty);
-  const int64_t* z = static_cast<const int64_t*>(tz);
-  int64_t* px = static_cast<int64_t*>(ox);
-  int64_t* py = static_cast<int64_t*>(oy);
-  int64_t* pz = static_cast<int64_t*>(oz);
   const size_t smem = (3 * static_cast<size_t>(nwin) + 6) * sizeof(svtpu::Fe);  // at most 24.8 KB
-  if (variant == 0) {
-    horner_combine_kernel<0><<<svtpu::grid_for(batch, HORNER_WARP), HORNER_WARP, 0, s>>>(
-        x, y, z, px, py, pz, batch, nwin, window, f);
-  } else if (variant == 1) {
-    horner_combine_kernel<1><<<static_cast<unsigned>(batch), HORNER_WARP, smem, s>>>(
-        x, y, z, px, py, pz, batch, nwin, window, f);
-  } else {
-    horner_combine_kernel<2><<<static_cast<unsigned>(batch), HORNER_WARP, smem, s>>>(
-        x, y, z, px, py, pz, batch, nwin, window, f);
-  }
+  horner_combine_kernel<<<static_cast<unsigned>(batch), HORNER_WARP, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(tx), static_cast<const int64_t*>(ty), static_cast<const int64_t*>(tz),
+      static_cast<int64_t*>(ox), static_cast<int64_t*>(oy), static_cast<int64_t*>(oz), nwin, window, f);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -523,16 +520,18 @@ extern "C" int svtpu_msm_window(const void* table, const void* digits, void* ox,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K9 on groups of 8 lanes, `block` threads per block (a multiple of 32 up to
+// 256, block / 8 proofs).
 extern "C" int svtpu_msm_horner(const void* ax, const void* ay, const void* az, const void* cx,
                                 const void* cy, const void* cz, void* ox, void* oy, void* oz,
                                 int64_t batch, const void* field_words, int block, void* stream) {
   if (batch <= 0) return 0;
+  if (block <= 0 || block % 32 != 0 || block > WINDOW_BLOCK_MAX) return static_cast<int>(cudaErrorInvalidValue);
   const svtpu::Field f = svtpu::field_from_host(static_cast<const uint32_t*>(field_words));
-  msm_horner_kernel<<<svtpu::grid_for(batch, block), block, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int64_t*>(ax), static_cast<const int64_t*>(ay),
-      static_cast<const int64_t*>(az), static_cast<const int64_t*>(cx),
-      static_cast<const int64_t*>(cy), static_cast<const int64_t*>(cz),
+  const size_t smem = static_cast<size_t>(block / WINDOW_GROUP) * HORNER_SLOTS * sizeof(svtpu::Fe);
+  msm_horner_kernel<<<svtpu::grid_for(batch * WINDOW_GROUP, block), block, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(ax), static_cast<const int64_t*>(ay), static_cast<const int64_t*>(az),
+      static_cast<const int64_t*>(cx), static_cast<const int64_t*>(cy), static_cast<const int64_t*>(cz),
       static_cast<int64_t*>(ox), static_cast<int64_t*>(oy), static_cast<int64_t*>(oz), batch, f);
   return static_cast<int>(cudaGetLastError());
 }

@@ -41,15 +41,10 @@ from snark_verifier_tpu_torch.ops.field_cuda import (
 
 FQ = F.FQ
 GROUP = 8  # lanes per point add of K2/K5 (csrc/curve.cu ADD_GROUP)
-# K2/K5's threads per block (8 adds): 64 was the fastest of the sweep
-# (chip_smoke.py) or within 1.1 % of it at every width of the main path,
-# 32 to 32768 adds, on the H100; 128 within 3 %, 256 up to 27 % slower.
+# K2/K5's threads per block (8 adds): 64 was the fastest of a sweep of 64,
+# 128 and 256 or within 1.1 % of it at every width of the main path, 32 to
+# 32768 adds, on the H100; 128 within 3 %, 256 up to 27 % slower.
 ADD_BLOCK = 64
-ADD_BLOCKS = (64, 128, 256)  # the block sizes chip_smoke.py sweeps for K2/K5
-# K2/K5's schedules: 8 lanes per add, and the one-thread kernels before
-# them; the wrappers launch the first (chip_smoke.py times both)
-SCHEDULES = ("lanes", "thread")
-THREAD_BLOCK = 128  # threads per block of the one-thread kernels
 # K3's lanes per doubling (csrc/bn254.cuh DBL_GROUP): 4 lanes hold its two
 # levels of four products with none idle
 DBL_GROUP = 4
@@ -172,22 +167,17 @@ def point_offsets(i, inner: int, s0: int, s1: int):
     return (i // inner) * s0 + (i % inner) * s1
 
 
-def add_grid(n: int, block: int = ADD_BLOCK) -> int:
-    """K2/K5's blocks for ``n`` adds: ``GROUP`` lanes each, ``block`` threads
-    per block; thread t of block b serves add (b * block + t) // GROUP."""
-    return -(-n * GROUP // block)
+def add_grid(n: int) -> int:
+    """K2/K5's blocks for ``n`` adds: ``GROUP`` lanes each, ``ADD_BLOCK``
+    threads per block; thread t of block b serves add (b * ADD_BLOCK + t) //
+    GROUP."""
+    return -(-n * GROUP // ADD_BLOCK)
 
 
-def add_points(cond, p: G1, q: G1, schedule: str = SCHEDULES[0], block: int = ADD_BLOCK):
+def add_points(cond, p: G1, q: G1):
     """One launch of K5 (``cond`` bool) or K2 (``cond`` None) on CUDA point
-    batches (broadcasting): the wrappers' launch, and chip_smoke.py's, which
-    also times the other ``SCHEDULES`` ("thread": the one-thread kernels
-    before this design, on contiguous copies of the operands) and the blocks
-    of ``ADD_BLOCKS``.  Counts nothing.  Returns (sum, number of adds)."""
-    if schedule not in SCHEDULES:
-        raise ValueError(f"add_points: schedule must be one of {SCHEDULES}, got {schedule!r}")
-    if block not in ADD_BLOCKS:
-        raise ValueError(f"add_points: block must be one of {ADD_BLOCKS}, got {block}")
+    batches (broadcasting).  Counts nothing.  Returns (sum, number of
+    adds)."""
     ins = [*p, *q]
     full = ins[0].shape
     batch = tuple(full[:-1])
@@ -202,24 +192,12 @@ def add_points(cond, p: G1, q: G1, schedule: str = SCHEDULES[0], block: int = AD
     n = math.prod(batch)
     if n == 0:
         return G1(*outs), 0
-    lib = _build.library()
+    ins, strides, mask, mask_strides, inner = point_operands(ins, mask, batch)
     with torch.cuda.device(dev):
-        if schedule == "thread":
-            ins = [_aligned(t) for t in ins]
-            ptrs = [t.data_ptr() for t in ins]
-            if mask is None:
-                code = lib.svtpu_g1_add(*ptrs, *(o.data_ptr() for o in outs), n, field_arg(FQ), THREAD_BLOCK,
-                                        stream_of(ins[0]))
-            else:
-                m = mask.contiguous().view(torch.uint8)
-                code = lib.svtpu_g1_add_select(*ptrs, m.data_ptr(), *(o.data_ptr() for o in outs), n, field_arg(FQ),
-                                               THREAD_BLOCK, stream_of(ins[0]))
-        else:
-            ins, strides, mask, mask_strides, inner = point_operands(ins, mask, batch)
-            code = lib.svtpu_g1_add_lanes(
-                _COORDS(*[t.data_ptr() for t in ins]), _STRIDES(*[v for pair in strides for v in pair]),
-                None if mask is None else mask.data_ptr(), _PAIR(*mask_strides),
-                *(o.data_ptr() for o in outs), n, inner, field_arg(FQ), block, stream_of(ins[0]))
+        code = _build.library().svtpu_g1_add_lanes(
+            _COORDS(*[t.data_ptr() for t in ins]), _STRIDES(*[v for pair in strides for v in pair]),
+            None if mask is None else mask.data_ptr(), _PAIR(*mask_strides),
+            *(o.data_ptr() for o in outs), n, inner, field_arg(FQ), ADD_BLOCK, stream_of(ins[0]))
     _build.check(code, "g1_add" if cond is None else "g1_add_select")
     return G1(*outs), n
 
@@ -236,23 +214,18 @@ def g1_add(p: G1, q: G1) -> G1:
     return out
 
 
-def double_points(p: G1, schedule: str = SCHEDULES[0]) -> tuple[G1, int]:
-    """One launch of K3 on a CUDA point batch: the wrapper's launch, and
-    chip_smoke.py's, which also times the "thread" schedule (the one-thread
-    kernel before this design).  Counts nothing.  Returns (2 p, number of
-    doublings)."""
-    if schedule not in SCHEDULES:
-        raise ValueError(f"double_points: schedule must be one of {SCHEDULES}, got {schedule!r}")
+def double_points(p: G1) -> tuple[G1, int]:
+    """One launch of K3 on a CUDA point batch.  Counts nothing.  Returns (2
+    p, number of doublings)."""
     ins = [_aligned(t) for t in torch.broadcast_tensors(*p)]
     batch = ins[0].shape[:-1]
     n = ins[0].numel() // F.NLIMB
     outs = [torch.empty_like(ins[0]) for _ in range(3)]
-    lanes = schedule == SCHEDULES[0]
     if n:
         with torch.cuda.device(ins[0].device):
             code = _build.library().svtpu_g1_double(
-                *(t.data_ptr() for t in ins), *(o.data_ptr() for o in outs), n, field_arg(FQ),
-                int(lanes), DBL_BLOCK if lanes else THREAD_BLOCK, stream_of(ins[0]))
+                *(t.data_ptr() for t in ins), *(o.data_ptr() for o in outs), n, field_arg(FQ), DBL_BLOCK,
+                stream_of(ins[0]))
         _build.check(code, "g1_double")
     return G1(*(o.reshape(*batch, F.NLIMB) for o in outs)), n
 

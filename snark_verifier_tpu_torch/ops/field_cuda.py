@@ -29,11 +29,10 @@ from snark_verifier_tpu_torch import _build
 from snark_verifier_tpu_torch.config import use_kernel
 from snark_verifier_tpu_torch.ops.field import NLIMB, FieldSpec, _cond_sub_mod, _resolve
 
-# K1's threads per block: 32 was the fastest of the sweep (chip_smoke.py) at
-# 1, 64 and 1820 elements on the H100 (3.62 against 4.62 us per launch at
+# K1's threads per block: 32 was the fastest of a sweep of 32, 64 and 128
+# at 1, 64 and 1820 elements on the H100 (3.62 against 4.62 us per launch at
 # 128 and 1820 elements; within 0.3 % at 1), so one block size serves all.
 K1_BLOCK = 32
-K1_BLOCKS = (32, 64, 128)  # the block sizes chip_smoke.py sweeps for K1
 POW_WINDOW = 4  # mont_pow's window (csrc/field.cu POW_TABLE = 2^4)
 
 
@@ -106,14 +105,11 @@ def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def mont_mul(a, b, spec: FieldSpec, block: int | None = None):
+def mont_mul(a, b, spec: FieldSpec):
     """Montgomery product of (..., 16) int64 limb tensors (broadcasting).
-    CUDA tensors launch K1 in blocks of ``block`` threads (``K1_BLOCK``
-    unless chip_smoke.py's sweep asks for another); CPU tensors take
-    ``mont_mul_plain``."""
+    CUDA tensors launch K1 in blocks of ``K1_BLOCK`` threads; CPU tensors
+    take ``mont_mul_plain``."""
     check_limbs("mont_mul", a, b)
-    if block is not None and block not in K1_BLOCKS:
-        raise ValueError(f"mont_mul: block must be one of {K1_BLOCKS}, got {block}")
     if not use_kernel(a, b):
         return mont_mul_plain(a, b, spec)
     a, b = (_aligned(t) for t in torch.broadcast_tensors(a, b))
@@ -121,7 +117,7 @@ def mont_mul(a, b, spec: FieldSpec, block: int | None = None):
     out = torch.empty_like(a)
     with torch.cuda.device(a.device):
         code = _build.library().svtpu_mont_mul(a.data_ptr(), b.data_ptr(), out.data_ptr(), n, field_arg(spec),
-                                               K1_BLOCK if block is None else block, stream_of(a))
+                                               K1_BLOCK, stream_of(a))
     _build.check(code, "mont_mul")
     if n:
         mont_mul.launches += 1

@@ -62,9 +62,8 @@ from snark_verifier_tpu_torch.ops.field_cuda import _aligned, check_limbs, field
 WINDOW = 4
 NWINDOWS = (NLIMB * LIMB_BITS) // WINDOW  # 64 signed 4-bit windows
 NTAB = (1 << (WINDOW - 1)) + 1  # |digit| in 0..8 -> 9 table entries
-BLOCK = 128  # threads per block of K9
-WINDOW_GROUP = 8  # K8's lanes per proof: one complete add on a group (csrc/bn254.cuh g1_add_group)
-WINDOW_BLOCK = 64  # K8's threads per block (8 proofs)
+WINDOW_GROUP = 8  # K8's and K9's lanes per proof: one complete add on a group (csrc/bn254.cuh g1_add_group)
+WINDOW_BLOCK = 64  # K8's and K9's threads per block (8 proofs)
 MAX_PROOFS_PER_BLOCK = 8  # the window sums of 8 proofs fill 48 KB of K4's shared memory
 # K4 blocks per SM: a block's Horner threads share its first warp, and a
 # third block on an SM slows every chain (chip_smoke.py's sweep, B = 8-1820)
@@ -188,7 +187,7 @@ def window_entry_offset(d, i, b, npoints: int, batch: int):
 
 
 def window_grid(batch: int) -> int:
-    """K8's blocks for ``batch`` proofs: ``WINDOW_GROUP`` lanes each,
+    """K8's and K9's blocks for ``batch`` proofs: ``WINDOW_GROUP`` lanes each,
     ``WINDOW_BLOCK`` threads per block; thread t of block g serves proof (g *
     WINDOW_BLOCK + t) // WINDOW_GROUP."""
     return -(-batch * WINDOW_GROUP // WINDOW_BLOCK)
@@ -232,8 +231,9 @@ def msm_horner_plain(acc: G1, contrib: G1) -> G1:
 
 
 def msm_horner(acc: G1, contrib: G1) -> G1:
-    """acc = 16 acc + contrib.  CUDA tensors launch K9 (one thread per
-    proof); CPU tensors take ``msm_horner_plain``."""
+    """acc = 16 acc + contrib.  CUDA tensors launch K9 (one proof on a
+    group of ``WINDOW_GROUP`` lanes, ``window_grid``'s blocks); CPU tensors
+    take ``msm_horner_plain``."""
     check_limbs("msm_horner", *acc, *contrib)
     if acc.x.dim() != 2 or any(c.shape != acc.x.shape for c in (*acc, *contrib)):
         raise ValueError(f"msm_horner: acc and contrib must be six (B, {NLIMB}) tensors")
@@ -245,7 +245,7 @@ def msm_horner(acc: G1, contrib: G1) -> G1:
     with torch.cuda.device(ins[0].device):
         code = _build.library().svtpu_msm_horner(
             *(t.data_ptr() for t in ins), *(o.data_ptr() for o in outs),
-            batch, field_arg(F.FQ), BLOCK, stream_of(ins[0]),
+            batch, field_arg(F.FQ), WINDOW_BLOCK, stream_of(ins[0]),
         )
     _build.check(code, "msm_horner")
     if batch:
@@ -303,22 +303,15 @@ def horner_combine_plain(totals: G1, window: int) -> G1:
     return acc
 
 
-HORNER_VARIANTS = {"thread": 0, "warp": 1, "warp_eo": 2}  # K6's schedules (csrc/msm.cu)
-
-
-def horner_combine(totals: G1, window: int, variant: str = "warp_eo") -> G1:
+def horner_combine(totals: G1, window: int) -> G1:
     """Horner window combine of a batch of MSMs.  CUDA tensors launch K6,
-    one warp per MSM (``variant`` "warp_eo"; "warp" runs it with the fmul
-    product and "thread" is the one-thread kernel, both kept for
-    chip_smoke.py's comparison); CPU tensors take ``horner_combine_plain``.
-    Shapes as in ``horner_combine_plain``; nwin at most 256."""
+    one warp per MSM; CPU tensors take ``horner_combine_plain``.  Shapes as
+    in ``horner_combine_plain``; nwin at most 256."""
     check_limbs("horner_combine", *totals)
     if totals.x.dim() != 3 or any(c.shape != totals.x.shape for c in totals):
         raise ValueError(f"horner_combine: totals must be three (B, nwin, {NLIMB}) tensors")
     if not 1 <= window <= 32:
         raise ValueError(f"horner_combine: window must be in 1..32, got {window}")
-    if variant not in HORNER_VARIANTS:
-        raise ValueError(f"horner_combine: variant must be one of {sorted(HORNER_VARIANTS)}, got {variant!r}")
     if not use_kernel(*totals):
         return horner_combine_plain(totals, window)
     batch, nwin, _ = totals.x.shape
@@ -327,7 +320,7 @@ def horner_combine(totals: G1, window: int, variant: str = "warp_eo") -> G1:
     with torch.cuda.device(ins[0].device):
         code = _build.library().svtpu_horner_combine(
             *(t.data_ptr() for t in ins), *(o.data_ptr() for o in outs),
-            batch, nwin, window, field_arg(F.FQ), HORNER_VARIANTS[variant], stream_of(ins[0]),
+            batch, nwin, window, field_arg(F.FQ), stream_of(ins[0]),
         )
     _build.check(code, "horner_combine")
     if batch and nwin:

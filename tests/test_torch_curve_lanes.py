@@ -48,14 +48,14 @@ def test_points_fold_into_two_strides_and_the_grid_covers_each_once(kind, width)
     assert torch.equal(m.reshape(-1), want_mask)
     flat_mask = torch.as_strided(m, (m.untyped_storage().nbytes(),), (1,), 0)
     assert torch.equal(flat_mask[CK.point_offsets(i, inner, *mask_strides)], want_mask)
-    for block in CK.ADD_BLOCKS:
-        grid = CK.add_grid(n, block)
-        thread = torch.arange(grid * block)
-        point = thread // CK.GROUP  # csrc/curve.cu add_lanes: (block * blockDim + t) / ADD_GROUP
-        served = point[(thread % CK.GROUP == 0) & (point < n)]
-        assert torch.equal(served, i)  # every point once, in order
-        assert (grid - 1) * block < n * CK.GROUP  # no block lies wholly past the end
-        assert block % 32 == 0  # whole warps: the kernel's __syncwarp()s span every lane
+    block = CK.ADD_BLOCK
+    grid = CK.add_grid(n)
+    thread = torch.arange(grid * block)
+    point = thread // CK.GROUP  # csrc/curve.cu add_lanes: (block * blockDim + t) / ADD_GROUP
+    served = point[(thread % CK.GROUP == 0) & (point < n)]
+    assert torch.equal(served, i)  # every point once, in order
+    assert (grid - 1) * block < n * CK.GROUP  # no block lies wholly past the end
+    assert block % 32 == 0  # whole warps: the kernel's __syncwarp()s span every lane
 
 
 def test_batches_that_do_not_fold_are_copied():
@@ -88,8 +88,16 @@ def test_batches_that_do_not_fold_are_copied():
 
 
 def test_add_points_validates_its_schedule_and_block():
+    """The K2/K5 wrappers refuse limbs that are not int64 (..., 16) and a
+    mask that is not bool, before any launch; operand batches that do not
+    broadcast fail in ``add_points`` itself."""
     g = C.g1_from_affine_ints([None, (1, 2)], "cpu")
     with pytest.raises(ValueError):
-        CK.add_points(None, g, g, schedule="warp")
+        CK.g1_add(C.G1(g.x.int(), g.y, g.z), g)
     with pytest.raises(ValueError):
-        CK.add_points(None, g, g, block=96)
+        CK.g1_add(g, C.G1(*(c[..., :8] for c in g)))
+    with pytest.raises(ValueError):
+        CK.g1_add_select(torch.tensor([1, 0]), g, g)
+    three = C.G1(*(torch.cat([c, c[:1]]) for c in g))
+    with pytest.raises(RuntimeError):
+        CK.add_points(None, g, three)

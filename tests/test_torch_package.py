@@ -163,9 +163,13 @@ def test_build_command_targets_the_ignored_build_dir():
     assert _build.KERNEL_SOURCES == ("field.cu", "curve.cu", "msm.cu", "tower.cu")
     assert all((_build.CSRC_DIR / s).exists() for s in _build.KERNEL_SOURCES + _build.HEADERS)
     assert set(_build.SIGNATURES) >= {
-        "svtpu_g1_add_select", "svtpu_horner_combine", "svtpu_fq12_mul", "svtpu_msm_window", "svtpu_msm_horner",
+        "svtpu_g1_double", "svtpu_horner_combine", "svtpu_fq12_mul", "svtpu_msm_window", "svtpu_msm_horner",
         "svtpu_miller_loop", "svtpu_final_exp", "svtpu_mont_pow", "svtpu_g1_add_lanes",
     }
+    # every C entry of the sources is bound, and nothing else
+    entries = {m for s in _build.KERNEL_SOURCES
+               for m in re.findall(r'extern "C" int (svtpu_\w+)\(', (_build.CSRC_DIR / s).read_text())}
+    assert set(_build.SIGNATURES) == entries
     assert len(_build.source_hash()) == 16
 
 
@@ -191,9 +195,9 @@ def test_wrappers_route_cpu_tensors_to_plain_and_validate():
     with pytest.raises(ValueError):
         FK.mont_mul(a[..., :8], a[..., :8], F.FQ)
     with pytest.raises(ValueError):
-        FK.mont_mul(a, a, F.FQ, block=16)
+        FK.mont_pow(a, -1, F.FQ)
     with pytest.raises(ValueError):
-        MK.horner_combine(tot, 3, variant="lanes")
+        MK.horner_combine(tot, 0)
     with pytest.raises(ValueError):
         MK.msm_scan(torch.zeros(8, 3, 1, 2, 16, dtype=torch.int64), torch.zeros(2, 1, 64, dtype=torch.int64))
     with pytest.raises(ValueError):
