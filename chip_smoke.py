@@ -80,14 +80,36 @@ of both its accumulators) and config 4's aggregation fold:
    kernels line reports K8/K9's times and bounds at this shape);
 10. config 4: the port's ``aggregate_native`` folds the four Poseidon
    snarks on the host, the card decides the fold (True) and decodes its 16
-   instance limbs back to it.
+   instance limbs back to it;
+11. IPA verify: an opening at K=10 proved on the host (zk off and on),
+   tiled to 64 rows with a wrong v in one and a corrupted round point in
+   another, through ``parallel.batch.build_ipa_verifier`` (the opening
+   verify on ``TorchLoader`` and ``TorchEvmTranscript``, then ``IpaAs.decide``
+   through ``decide_ipa``): ``ok`` False exactly on those rows, U equal to
+   the native verifier's, one K6 launch; times, peak memory, a profile;
+12. IPA decide at k=20: 2^20 generators (64 random points tiled), 4
+   accumulators with random xi and U from a host oracle, the last moved to
+   U + G: True, True, True, False with one K6 launch; the generators'
+   conversion, first and warm times, peak memory, launches, a profile;
+13. chunked MSM: ``msm_serial_chunked`` (window 8, ``win_chunk`` 8) at 2^20
+   limb for limb equal to ``msm_serial`` and at 2^22 equal to the oracle
+   with its peak under 80 GB; ``msm_serial_rows`` with two scalar rows at
+   2^20, each row limb for limb equal to ``msm_serial``; one K6 launch
+   each; times and peaks;
+14. mesh: a world-1 NCCL group (``file://`` store): ``shard_verifier`` on
+   config 1 at B=1820 row for row equal to the unsharded verifier,
+   ``sharded_msm`` and ``sharded_msm_2d`` (a (1, 1) mesh) at 2^20 equal to
+   ``msm_serial``, ``entry.dryrun_multichip(1)``; then two ranks of a gloo
+   group on the one card (spawned; NCCL refuses two ranks on one device):
+   ``shard_verifier`` at B=64 and ``sharded_msm`` at 2^16 equal on both
+   ranks to the unsharded results, within 300 s.
 
 On every path, each ``field.pow_const``/``inv`` must be one ``mont_pow``
 launch (``count_launches``).
 
 Every failure raises, so the exit code is non-zero.  The last stdout line
-is ``{"ok": true, "device": {...}}``; before it, a JSON line with the
-per-kernel results (``path_device_ms``: the kernel's mean device time per
+is ``{"ok": true, "device": {...}}``; before it, a JSON line with phases
+11-14's numbers (``paths``), a JSON line with the per-kernel results (``path_device_ms``: the kernel's mean device time per
 launch in the profiled warm run of the path that counts its launches;
 ``bound_with_floor_ms``: ``bound_ms`` raised to the least device time of
 any one kernel launch in those profiles) and the ``nvidia-smi`` name and
@@ -138,6 +160,11 @@ AGG_WINDOWED_KERNELS = ("mont_mul", "mont_pow", "g1_add", "g1_double", "msm_wind
 PAIRING_BATCHES = (1, 8)  # K7's pairing kernels: the decide's batch and the outer snark's
 SCAN_SWEEP_BATCHES = (8, 66, 132, 264, 400, 528, 800, 1056, 1320, 1820)  # K4's geometry sweep
 HORNER_SHAPES = ((32, 8), (24, 11))  # K6: (nwin, window) of the decide's MSM and of the 2^20 MSM (signed)
+IPA_K, IPA_BATCH = 10, 64  # the IPA verify phase: key size, openings (one tiled)
+IPA_WRONG_V, IPA_BAD_BYTE = 5, 9  # its rows with a wrong v and with a corrupted round point
+IPA_KERNELS = ("mont_mul", "mont_pow", "g1_add", "g1_double", "msm_scan", "g1_add_select", "horner_combine")
+IPA_DECIDE_K, IPA_DECIDE_BATCH = 20, 4  # the IPA decide at full width: 2^20 generators, 4 accumulators
+CHUNK = 8  # msm_serial_chunked's win_chunk (the JAX default) at 2^20 and 2^22
 DECIDE_MAX_K1, DECIDE_MAX_POW, VERIFY_MAX_K1 = 16, 2, 230  # launch ceilings on the decide and the Keccak verify
 # K2/K5: the widths of their launches on the main path (the decide's bucket
 # tree 32768 ... 32 pairs, flushes 8192, tree sums 4096 ... 32, suffix scans
@@ -1558,7 +1585,6 @@ def phase_msm(torch, dev, card, rng):
     """msm_serial at 2^16 (window 8) and 2^20 (window 11, signed): points a
     pool of 64 random multiples of G tiled, random Fr scalars; exact against
     the oracle via the per-pool-point scalar sums."""
-    from snark_verifier_tpu_torch import entry as E
     from snark_verifier_tpu_torch.ops import curve as C
     from snark_verifier_tpu_torch.ops import msm as M
     from snark_verifier_tpu_torch.util import bn254
@@ -1567,12 +1593,7 @@ def phase_msm(torch, dev, card, rng):
     pool_t = C.g1_from_affine_ints(pool, dev)
     for logn, window, signed in MSM_CASES:
         n = 1 << logn
-        idx = torch.arange(n, device=dev) % MSM_POOL
-        pts = C.G1(*(c[idx] for c in pool_t))
-        scal = E.fold_scalars(n, torch.Generator().manual_seed(SEED + logn), "cpu")
-        sums = scal.reshape(n // MSM_POOL, MSM_POOL, 16).sum(0).tolist()  # per pool point, per limb
-        reduced = [sum(v << (16 * i) for i, v in enumerate(row)) % bn254.R for row in sums]
-        scal = scal.to(dev)
+        pts, scal, reduced = tiled_msm_input(torch, dev, pool_t, logn, SEED + logn)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
@@ -1595,6 +1616,397 @@ def phase_msm(torch, dev, card, rng):
             f"{n / warm:.1f} points/s; peak memory {peak / 2**20:.1f} MiB, on {card}")
         del pts, scal, out
         torch.cuda.empty_cache()
+
+
+def ipa_openings(pk, rng, batch: int):
+    """The IPA openings of the ipa_verify phase: one opening proved on the
+    host, tiled to ``batch`` rows, with a wrong v in row ``IPA_WRONG_V`` and
+    a corrupted byte of the first round's L point in row ``IPA_BAD_BYTE``;
+    and each row's expected result from the native verifier (U, or None
+    where it rejects the opening)."""
+    from snark_verifier_tpu_torch import entry as E
+    from snark_verifier_tpu_torch.errors import AssertionFailure, TranscriptError
+    from snark_verifier_tpu_torch.util import bn254
+
+    c, z, v, proof = E.ipa_opening(pk, rng)
+    bad = bytearray(proof)
+    bad[(96 if pk.zk() else 0) + 10] ^= 0x40  # the first round's L, x coordinate
+    kinds = {"good": (c, z, v, proof), "wrong_v": (c, z, (v + 1) % bn254.R, proof), "bad_byte": (c, z, v, bytes(bad))}
+    expect = {}
+    for kind, opening in kinds.items():
+        try:
+            expect[kind] = E.native_ipa_accumulator(pk.svk(), *opening)
+        except (AssertionFailure, TranscriptError):
+            expect[kind] = None
+    rows = ["wrong_v" if i == IPA_WRONG_V else "bad_byte" if i == IPA_BAD_BYTE else "good" for i in range(batch)]
+    return [kinds[k] for k in rows], [expect[k] for k in rows]
+
+
+def phase_ipa_verify(torch, dev, card, rng):
+    """The IPA opening verify and decide at K=10, B=64, zk off and on: a
+    real opening proved on the host (``IpaProvingKey.rand``,
+    ``Ipa.create_proof``) tiled, a wrong v in one row and a corrupted round
+    point in another; ``build_ipa_verifier`` (``Ipa.read_proof`` +
+    ``succinct_verify`` through ``TorchLoader`` and ``TorchEvmTranscript``,
+    then ``IpaAs.decide`` through ``decide_ipa``): ``ok`` False exactly on
+    those rows, U equal to the native verifier's on the good rows, one K6
+    launch per decide."""
+    from snark_verifier_tpu_torch import entry as E
+    from snark_verifier_tpu_torch.ops.limbs import limbs_to_int
+    from snark_verifier_tpu_torch.parallel.batch import build_ipa_verifier
+    from snark_verifier_tpu_torch.pcs.ipa import IpaProvingKey
+
+    results = {}
+    for zk in (False, True):
+        label = "zk" if zk else "plain"
+        t0 = time.perf_counter()
+        pk = IpaProvingKey.rand(IPA_K, zk, seed=SEED + zk)
+        openings, expect = ipa_openings(pk, rng, IPA_BATCH)
+        host_s = time.perf_counter() - t0
+        require(expect[IPA_WRONG_V] is None and expect[IPA_BAD_BYTE] is None and expect[0] is not None,
+                f"ipa {label}: the native verifier must reject exactly the corrupted openings")
+        fn = build_ipa_verifier(pk.svk(), pk.dk(), dev)
+        args = E.pack_ipa_openings(openings, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out, launches = count_launches(torch, lambda: fn(*args), IPA_KERNELS)
+        first_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        ok = out["ok"].cpu().tolist()
+        require(ok == [e is not None for e in expect], f"ipa {label}: ok {ok} must be False exactly on the corrupted rows")
+        ux, uy = out["u_x"].cpu().numpy(), out["u_y"].cpu().numpy()
+        for row in {0, IPA_BATCH - 1}:
+            require((limbs_to_int(ux[row]), limbs_to_int(uy[row])) == expect[row],
+                    f"ipa {label}: row {row}'s U != the native verifier's")
+        require(launches["horner_combine"] == 1, f"ipa {label}: {launches['horner_combine']} K6 launches, not one")
+        warm, times = warm_times(torch, fn, args)
+        profile_run(torch, f"ipa_verify_{label}", "horner_combine", fn, args, warm)
+        results[label] = {"first_s": first_s, "warm_s": warm, "peak_mib": peak / 2**20, "launches": launches,
+                          "host_proof_s": host_s}
+        log(f"ipa verify + decide (K={IPA_K}, B={IPA_BATCH}, {label}): ok False exactly on rows "
+            f"{[IPA_WRONG_V, IPA_BAD_BYTE]} (wrong v, corrupted round point), U equal to native; keygen + proof on "
+            f"the host {host_s:.1f} s; first run {first_s:.3f} s, warm median {warm:.4f} s of "
+            f"{[round(t, 4) for t in times]}; peak memory {peak / 2**20:.1f} MiB; launches {launches}, on {card}")
+    return results
+
+
+def ipa_decide_oracle(pool, xi_rows, k: int):
+    """Host: U = MSM(g, h(xi)) for generators ``pool`` tiled to 2^k.  The
+    coefficient of index i is the product of xi[k - 1 - t] over the set bits
+    t of i, so the coefficients of the indices = j mod 64 sum to
+    h_low(j) * prod_{t >= 6} (1 + xi[k - 1 - t]): a 64-point MSM per row."""
+    from snark_verifier_tpu_torch.util import bn254
+
+    lb = len(pool).bit_length() - 1
+    out = []
+    for xi in xi_rows:
+        high = 1
+        for t in range(lb, k):
+            high = high * (1 + xi[k - 1 - t]) % bn254.R
+        coeffs = []
+        for j in range(len(pool)):
+            c = high
+            for t in range(lb):
+                if j >> t & 1:
+                    c = c * xi[k - 1 - t] % bn254.R
+            coeffs.append(c)
+        out.append(bn254.g1_msm(coeffs, pool))
+    return out
+
+
+def phase_ipa_decide(torch, dev, card, rng):
+    """The IPA decide at k=20 (2^20 generators: 64 random points tiled, as
+    the large MSM's input), B=4 accumulators with random xi and U from the
+    host oracle, row 3's U moved to U + G: ``decide_ipa`` True, True, True,
+    False with one K6 launch; the generators' conversion, first call and
+    warm times, peak memory."""
+    from snark_verifier_tpu_torch.loader import EcPoint, Scalar
+    from snark_verifier_tpu_torch.loader.torch_loader import TorchLoader, TorchPoint, dk_points
+    from snark_verifier_tpu_torch.ops import curve as C
+    from snark_verifier_tpu_torch.ops import field as F
+    from snark_verifier_tpu_torch.ops.convert import ints_to_tensor
+    from snark_verifier_tpu_torch.pcs.ipa import IpaAccumulator, IpaDecidingKey
+    from snark_verifier_tpu_torch.util import bn254
+
+    k, batch = IPA_DECIDE_K, IPA_DECIDE_BATCH
+    pool = [bn254.g1_mul(bn254.G1_GEN, rng.randrange(1, bn254.R)) for _ in range(MSM_POOL)]
+    dk = IpaDecidingKey(svk=None, g=pool * ((1 << k) // MSM_POOL))
+    xi_rows = [[rng.randrange(1, bn254.R) for _ in range(k)] for _ in range(batch)]
+    t0 = time.perf_counter()
+    us = ipa_decide_oracle(pool, xi_rows, k)
+    oracle_s = time.perf_counter() - t0
+    us[-1] = bn254.g1_add(us[-1], bn254.G1_GEN)
+    t0 = time.perf_counter()
+    dk_points(dk, dev)
+    torch.cuda.synchronize()
+    convert_s = time.perf_counter() - t0
+
+    def decide():
+        loader = TorchLoader((batch,), dev)
+        xi = [Scalar(loader, F.to_mont(ints_to_tensor([row[t] for row in xi_rows], dev), F.FR)) for t in range(k)]
+        x, y = (torch.as_tensor(F.FQ.encode([u[i] for u in us]).astype("int64"), device=dev) for i in (0, 1))
+        u = EcPoint(loader, TorchPoint(x, y, torch.zeros(batch, dtype=torch.bool, device=dev)))
+        return loader.decide_ipa(IpaAccumulator(xi, u), dk)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    mask, launches = count_launches(torch, decide, ("mont_mul", "g1_add", "g1_add_select", "horner_combine"))
+    first_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    require(mask.cpu().tolist() == [True] * (batch - 1) + [False],
+            f"ipa decide k={k}: mask {mask.cpu().tolist()} != the host oracle's (last row U + G)")
+    require(launches["horner_combine"] == 1, f"ipa decide k={k}: {launches['horner_combine']} K6 launches, not one")
+    warm, times = warm_times(torch, decide, ())
+    profile_run(torch, "ipa_decide_k20", "horner_combine", decide, (), warm)
+    row = {"first_s": first_s, "warm_s": warm, "warm_runs_s": times, "convert_s": convert_s, "peak_mib": peak / 2**20,
+           "launches": {n: launches[n] for n in ("mont_mul", "mont_pow", "g1_add", "g1_add_select", "horner_combine")}}
+    log(f"ipa decide k={k} (B={batch}, 2^{k} generators, window 8): True on the 3 rows with U from the host oracle "
+        f"({oracle_s:.2f} s), False with U + G; generators to the card {convert_s:.2f} s (once per key); first "
+        f"decide {first_s:.3f} s, warm median {warm:.4f} s of {[round(t, 4) for t in times]}; peak memory "
+        f"{peak / 2**20:.1f} MiB; launches K1 {launches['mont_mul']}, mont_pow {launches['mont_pow']}, K2 "
+        f"{launches['g1_add']}, K5 {launches['g1_add_select']}, K6 {launches['horner_combine']}, on {card}")
+    return row
+
+
+def tiled_msm_input(torch, dev, pool_t, logn: int, seed: int):
+    """2^logn points (the pool tiled) and random Fr scalars, and the oracle's
+    per-pool-point scalar sums."""
+    from snark_verifier_tpu_torch import entry as E
+    from snark_verifier_tpu_torch.util import bn254
+
+    n = 1 << logn
+    idx = torch.arange(n, device=dev) % MSM_POOL
+    pts = type(pool_t)(*(c[idx] for c in pool_t))
+    scal = E.fold_scalars(n, torch.Generator().manual_seed(seed), "cpu")
+    sums = scal.reshape(n // MSM_POOL, MSM_POOL, 16).sum(0).tolist()  # per pool point, per limb
+    reduced = [sum(v << (16 * i) for i, v in enumerate(row)) % bn254.R for row in sums]
+    return pts, scal.to(dev), reduced
+
+
+LARGE_MSM_KERNELS = ("g1_add", "g1_add_select", "horner_combine")  # a large MSM's kernels: K2, K5, K6
+
+
+def timed_peak(torch, dev, fn, reps: int = 3):
+    """A large MSM's first call (seconds, peak memory, launches of its
+    kernels: one K6 launch) and the warm median of ``reps``."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out, launches = count_launches(torch, fn, LARGE_MSM_KERNELS)
+    first_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    require(launches["horner_combine"] == 1, f"a large MSM made {launches['horner_combine']} K6 launches, not one")
+    warm, times = warm_times(torch, fn, (), reps)
+    return out, {"first_s": first_s, "warm_s": warm, "warm_runs_s": times, "peak_mib": peak / 2**20,
+                 "launches": {k: launches[k] for k in ("mont_mul", *LARGE_MSM_KERNELS)}}
+
+
+def phase_msm_chunked(torch, dev, card, rng):
+    """``msm_serial_chunked`` (window 8, ``win_chunk`` 8) at 2^20 limb for
+    limb against ``msm_serial``, and at 2^22 against the oracle with its
+    peak under 80 GB; each with its peak memory and warm time."""
+    from snark_verifier_tpu_torch.ops import curve as C
+    from snark_verifier_tpu_torch.ops import msm as M
+    from snark_verifier_tpu_torch.util import bn254
+
+    pool = [bn254.g1_mul(bn254.G1_GEN, rng.randrange(1, bn254.R)) for _ in range(MSM_POOL)]
+    pool_t = C.g1_from_affine_ints(pool, dev)
+    rows = {}
+    pts, scal, reduced = tiled_msm_input(torch, dev, pool_t, 20, SEED + 120)
+    whole, rows["serial_2e20"] = timed_peak(torch, dev, lambda: M.msm_serial(pts, scal, 8))
+    chunked, rows["chunked_2e20"] = timed_peak(torch, dev, lambda: M.msm_serial_chunked(pts, scal, 8, CHUNK))
+    require(all(torch.equal(a, b) for a, b in zip(whole, chunked)), "msm_serial_chunked 2^20 != msm_serial")
+    require(C.g1_to_affine_ints(C.G1(*(c[None] for c in chunked))) == [bn254.g1_msm(reduced, pool)],
+            "msm_serial_chunked 2^20: != oracle")
+    # the IPA decide's form: two scalar rows over the one point set, one K6 launch
+    flipped = M.msm_serial(pts, scal.flip(0), 8)
+    two, rows["rows_2x2e20"] = timed_peak(torch, dev, lambda: M.msm_serial_rows(pts, torch.stack([scal, scal.flip(0)])))
+    require(all(torch.equal(t[0], a) and torch.equal(t[1], b) for t, a, b in zip(two, whole, flipped)),
+            "msm_serial_rows 2 x 2^20: a row != msm_serial of its scalars")
+    del pts, scal, whole, chunked, flipped, two
+    pts, scal, reduced = tiled_msm_input(torch, dev, pool_t, 22, SEED + 122)
+    big, rows["chunked_2e22"] = timed_peak(torch, dev, lambda: M.msm_serial_chunked(pts, scal, 8, CHUNK), reps=2)
+    require(C.g1_to_affine_ints(C.G1(*(c[None] for c in big))) == [bn254.g1_msm(reduced, pool)],
+            "msm_serial_chunked 2^22: != oracle")
+    require(rows["chunked_2e22"]["peak_mib"] < 80e9 / 2**20, "msm_serial_chunked 2^22: peak above 80 GB")
+    del pts, scal, big
+    torch.cuda.empty_cache()
+    for name, row in rows.items():
+        log(f"{name} (window 8{', win_chunk ' + str(CHUNK) if name.startswith('chunked') else ''}): first {row['first_s']:.4f} s, "
+            f"warm median {row['warm_s']:.4f} s of {[round(t, 4) for t in row['warm_runs_s']]}, peak memory "
+            f"{row['peak_mib']:.1f} MiB, launches {row['launches']}, on {card}")
+    log("msm_serial_chunked equals msm_serial limb for limb at 2^20 and the oracle at 2^20 and 2^22; "
+        "msm_serial_rows' two rows equal msm_serial of each row's scalars limb for limb at 2^20")
+    return rows
+
+
+def mirrored_turns(torch, fns: dict, rounds: int = 3) -> dict:
+    """Warm host-clock seconds of each synchronised call in mirrored turns
+    (a, b, ..., b, a per round), so host drift falls on every one alike:
+    each one's median and runs."""
+    runs = {k: [] for k in fns}
+    for _ in range(rounds):
+        for name in [*fns, *reversed(fns)]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[name]()
+            torch.cuda.synchronize()
+            runs[name].append(time.perf_counter() - t0)
+    return {k: {"warm_s": statistics.median(v), "runs_s": v} for k, v in runs.items()}
+
+
+def mesh_group(torch, store: str):
+    """A world-1 NCCL process group through a ``file://`` store."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1)
+
+
+def phase_mesh(torch, dev, card, rng):
+    """The mesh on one card: a world-1 NCCL group; ``shard_verifier`` on
+    config 1 at B=1820 row for row equal to the unsharded verifier;
+    ``sharded_msm`` at 2^20 and ``sharded_msm_2d`` on a (1, 1) mesh equal to
+    ``msm_serial`` in affine; ``entry.dryrun_multichip(1)``."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from snark_verifier_tpu_torch import entry as E
+    from snark_verifier_tpu_torch.ops import curve as C
+    from snark_verifier_tpu_torch.ops import msm as M
+    from snark_verifier_tpu_torch.parallel import mesh as MESH
+    from snark_verifier_tpu_torch.util import bn254
+
+    row = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh_group(torch, f"{tmp}/store")
+        try:
+            mesh = MESH.make_mesh(1)
+            fn, args = E.entry(dev, batch=B)
+            want = fn(*args)
+            sharded = MESH.shard_verifier(fn, mesh)
+            got, launches = count_launches(torch, lambda: sharded(*args), SLICE_KERNELS)
+            require(set(got) == set(want) and all(torch.equal(got[k], want[k]) for k in want),
+                    f"mesh: shard_verifier at B={B} != the unsharded verifier")
+            turns = mirrored_turns(torch, {"build_verifier": lambda: fn(*args), "shard_verifier": lambda: sharded(*args)})
+            row["shard_verifier"] = {**turns, "launches": launches}
+            log(f"mesh (world 1, NCCL): shard_verifier on config 1 at B={B} row for row equal to build_verifier; warm "
+                f"medians in mirrored turns: shard_verifier {turns['shard_verifier']['warm_s']:.4f} s of "
+                f"{[round(t, 4) for t in turns['shard_verifier']['runs_s']]}, build_verifier "
+                f"{turns['build_verifier']['warm_s']:.4f} s of {[round(t, 4) for t in turns['build_verifier']['runs_s']]}, "
+                f"on {card}")
+            pool = [bn254.g1_mul(bn254.G1_GEN, rng.randrange(1, bn254.R)) for _ in range(MSM_POOL)]
+            pts, scal, reduced = tiled_msm_input(torch, dev, C.g1_from_affine_ints(pool, dev), 20, SEED + 220)
+            want_pt = C.g1_to_affine_ints(C.G1(*(c[None] for c in M.msm_serial(pts, scal, 8))))
+            require(want_pt == [bn254.g1_msm(reduced, pool)], "mesh: msm_serial 2^20 != oracle")
+            runs = {"sharded_msm": lambda: MESH.sharded_msm(pts, scal, mesh),
+                    "sharded_msm_2d": lambda: MESH.sharded_msm_2d(pts, scal, MESH.make_mesh_2d(1, 1))}
+            for name, run in runs.items():
+                out, t = timed_peak(torch, dev, run)
+                require(C.g1_to_affine_ints(C.G1(*(c[None] for c in out))) == want_pt, f"mesh: {name} 2^20 != msm_serial")
+                row[name] = t
+                log(f"mesh: {name} at 2^20 equal to msm_serial in affine; peak {t['peak_mib']:.1f} MiB, launches "
+                    f"{t['launches']}, on {card}")
+            turns = mirrored_turns(torch, {"msm_serial": lambda: M.msm_serial(pts, scal, 8), **runs})
+            row["msm_turns"] = turns
+            log("mesh: 2^20 MSM warm medians in mirrored turns: " + ", ".join(
+                f"{k} {v['warm_s']:.4f} s of {[round(t, 4) for t in v['runs_s']]}" for k, v in turns.items())
+                + f", on {card}")
+            del pts, scal
+            E.dryrun_multichip(1)
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return row
+
+
+TWO_RANK_BATCH = 64  # config 1's proofs in the two-rank run
+TWO_RANK_LIMIT_S = 300.0  # the two ranks must have ended by then
+
+
+def two_rank_msm_input(torch, dev):
+    """The two-rank run's MSM, the same on both ranks: 2^16 points (a pool
+    of 64 tiled) and scalars from the seed; and the oracle's sum."""
+    from snark_verifier_tpu_torch.ops import curve as C
+    from snark_verifier_tpu_torch.util import bn254
+
+    rng = random.Random(SEED + 300)
+    pool = [bn254.g1_mul(bn254.G1_GEN, rng.randrange(1, bn254.R)) for _ in range(MSM_POOL)]
+    pts, scal, reduced = tiled_msm_input(torch, dev, C.g1_from_affine_ints(pool, dev), 16, SEED + 316)
+    return pts, scal, bn254.g1_msm(reduced, pool)
+
+
+def two_rank_main(rank, store, out_dir):
+    """One of two ranks of a gloo group on the one card: ``shard_verifier``
+    on config 1 at ``TWO_RANK_BATCH`` proofs and ``sharded_msm`` at 2^16;
+    saves both results as ``<out_dir>/<rank>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from snark_verifier_tpu_torch import entry as E
+    from snark_verifier_tpu_torch.parallel import mesh as MESH
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=2)
+    try:
+        mesh = MESH.make_mesh(2)
+        fn, args = E.entry(dev, batch=TWO_RANK_BATCH)
+        out = MESH.shard_verifier(fn, mesh)(*args)
+        pts, scal, _ = two_rank_msm_input(torch, dev)
+        total = MESH.sharded_msm(pts, scal, mesh)
+        jax_modules = [m for m in sys.modules if m.split(".")[0] in ("jax", "snark_verifier_tpu")]
+        torch.save({"verify": {k: v.cpu() for k, v in out.items()}, "msm": [c.cpu() for c in total],
+                    "jax_modules": jax_modules}, f"{out_dir}/{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_two_ranks(torch, dev, card):
+    """Two ranks of a gloo group on the one card (spawned processes, CUDA
+    tensors, a ``file://`` store): ``shard_verifier`` row for row equal to
+    the unsharded verifier and ``sharded_msm`` equal to the oracle, on each
+    rank; both ranks must end within ``TWO_RANK_LIMIT_S``."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from snark_verifier_tpu_torch import entry as E
+    from snark_verifier_tpu_torch.ops import curve as C
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(two_rank_main, args=(f"{tmp}/store", tmp), nprocs=2, start_method="spawn",
+                                 join=False)
+        try:
+            while not ctx.join(timeout=max(0.0, TWO_RANK_LIMIT_S - (time.perf_counter() - t0))):
+                require(time.perf_counter() - t0 < TWO_RANK_LIMIT_S,
+                        f"two ranks: not ended within {TWO_RANK_LIMIT_S} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join(10)
+        results = [torch.load(f"{tmp}/{rank}.pt") for rank in range(2)]
+    wall = time.perf_counter() - t0
+    fn, args = E.entry(dev, batch=TWO_RANK_BATCH)
+    want = {k: v.cpu() for k, v in fn(*args).items()}
+    _, _, oracle = two_rank_msm_input(torch, "cpu")
+    for rank, got in enumerate(results):
+        require(set(got["verify"]) == set(want) and all(torch.equal(got["verify"][k], want[k]) for k in want),
+                f"two ranks: rank {rank}'s shard_verifier != the unsharded verifier")
+        require(C.g1_to_affine_ints(C.G1(*(c[None] for c in got["msm"]))) == [oracle],
+                f"two ranks: rank {rank}'s sharded_msm != the oracle")
+        require(not got["jax_modules"], f"two ranks: rank {rank} imported {got['jax_modules'][:3]}")
+    log(f"two ranks (gloo, CUDA tensors, one card): shard_verifier on config 1 at B={TWO_RANK_BATCH} row for row "
+        f"equal to build_verifier and sharded_msm at 2^16 equal to the oracle on both ranks; {wall:.1f} s with the "
+        f"ranks' start-up, on {card}")
+    return {"wall_s": wall}
 
 
 def add_path_totals(name: str, floor) -> dict:
@@ -1694,6 +2106,15 @@ def main() -> int:
     critical_paths(results)
     phase_config4(torch, dev, smi)
     done("config 4")
+    new_paths = {"ipa_verify": phase_ipa_verify(torch, dev, smi, rng)}
+    done("ipa verify")
+    new_paths["ipa_decide_k20"] = phase_ipa_decide(torch, dev, smi, rng)
+    done("ipa decide")
+    new_paths["msm_chunked"] = phase_msm_chunked(torch, dev, smi, rng)
+    done("chunked MSM")
+    new_paths["mesh"] = phase_mesh(torch, dev, smi, rng)
+    new_paths["mesh"]["two_ranks"] = phase_two_ranks(torch, dev, smi)
+    done("mesh")
     require("jax" not in sys.modules, "the port must not import jax")
     require(not any(m == "snark_verifier_tpu" or m.startswith("snark_verifier_tpu.") for m in sys.modules),
             "the port must not import the JAX package")
@@ -1726,6 +2147,7 @@ def main() -> int:
         row["ptxas"] = {k: v for k, v in ptxas.items() if k.split(" ")[0] == row["name"]}
         if row["name"] in ("g1_add", "g1_add_select"):
             row["lanes"]["paths"] = add_path_totals(row["name"], floor)
+    print(json.dumps({"paths": new_paths}))
     print(json.dumps({"kernels": report}))
     print(smi)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}

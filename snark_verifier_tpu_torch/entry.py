@@ -20,29 +20,40 @@ The circuits, deciding keys and proofs come from data files,
 (written by ``tests/test_torch_fixture.py``, which proves that they are what
 the JAX package's prover and the golden file give), so no prover runs here.
 
+The IPA path: openings proved on the host by the IPA prover on the Keccak
+transcript (``ipa_opening``), verified and decided on the device
+(``parallel/batch.build_ipa_verifier``).  The multi-device path:
+``dryrun_multichip``, the counterpart of ``__graft_entry__.dryrun_multichip``
+on ``torch.distributed`` (``parallel/mesh.py``).
+
 Also the host-side references the checks use: the native (python-int)
-succinct verifier and the host pairing oracle.
+succinct verifiers and the host pairing oracle.
 """
 
 from __future__ import annotations
 
 import functools
 import json
+import random
 from dataclasses import dataclass
 from pathlib import Path
 
 import torch
 
+from snark_verifier_tpu_torch.loader import EcPoint
 from snark_verifier_tpu_torch.loader.native import NativeLoader
+from snark_verifier_tpu_torch.ops.convert import ints_to_tensor
 from snark_verifier_tpu_torch.parallel.batch import (
     build_batch_decider,
     build_verifier,
     pack_instances,
     pack_proofs,
 )
+from snark_verifier_tpu_torch.pcs.ipa import Ipa
 from snark_verifier_tpu_torch.pcs.kzg import KzgDecidingKey, KzgGwc, KzgShplonk
 from snark_verifier_tpu_torch.system.halo2.transcript import NativeEvmTranscript, NativePoseidonTranscript
 from snark_verifier_tpu_torch.util import bn254
+from snark_verifier_tpu_torch.util.msm_symbolic import Msm
 from snark_verifier_tpu_torch.verifier.plonk import PlonkSuccinctVerifier
 from snark_verifier_tpu_torch.verifier.plonk.serialization import protocol_from_json
 
@@ -217,3 +228,59 @@ def corrupt(proof: bytes) -> bytes:
     bad = bytearray(proof)
     bad[100] ^= 0x40
     return bytes(bad)
+
+
+def ipa_opening(pk, rng: random.Random):
+    """Host: a random polynomial of ``pk``'s size, committed (blinded when
+    the key is zk), opened at a random z by the IPA prover on the Keccak
+    transcript.  Returns ``(c, z, v, proof_bytes)``: the affine commitment,
+    the point, the value there and the proof."""
+    p = [rng.randrange(bn254.R) for _ in range(pk.domain.n)]
+    omega = rng.randrange(bn254.R) if pk.zk() else None
+    c = pk.commit(p, omega)
+    z = rng.randrange(bn254.R)
+    v = sum(coef * pow(z, i, bn254.R) for i, coef in enumerate(p)) % bn254.R
+    transcript = NativeEvmTranscript()
+    Ipa.create_proof(pk, p, z, omega, transcript, rng)
+    return c, z, v, transcript.finalize()
+
+
+def pack_ipa_openings(openings, device="cuda"):
+    """Host: ``(c, z, v, proof_bytes)`` openings -> the arguments
+    ``(proof_bytes, c_x, c_y, z, v)`` of ``build_ipa_verifier``'s function."""
+    cols = ([o[0][0] for o in openings], [o[0][1] for o in openings], [o[1] for o in openings],
+            [o[2] for o in openings])
+    return (pack_proofs([o[3] for o in openings], device), *(ints_to_tensor(c, device) for c in cols))
+
+
+def native_ipa_accumulator(svk, c, z, v, proof: bytes):
+    """The affine U of the python-int IPA succinct verify of one opening;
+    raises ``AssertionFailure`` when its check fails."""
+    loader = NativeLoader()
+    ipa_proof = Ipa.read_proof(svk, NativeEvmTranscript(proof, loader))
+    acc = Ipa.succinct_verify(svk, Msm.base(EcPoint(loader, c)), loader.load_const(z), loader.load_const(v), ipa_proof)
+    return acc.u.value
+
+
+def dryrun_multichip(n_devices: int, device_type: str = "cuda") -> None:
+    """An ``n_devices`` mesh run once on small shapes, the counterpart of
+    ``__graft_entry__.dryrun_multichip``: config 1's proofs (one per
+    device) verified data-parallel over the mesh, then a sharded large MSM
+    of 4 points per device against the host oracle.  Every rank of an
+    initialised process group of ``n_devices`` ranks calls it; raises on a
+    mismatch."""
+    from snark_verifier_tpu_torch.ops import curve as C
+    from snark_verifier_tpu_torch.parallel.mesh import make_mesh, shard_verifier, sharded_msm
+
+    mesh = make_mesh(n_devices, device_type=device_type)
+    fn, args = entry(device_type, batch=n_devices)
+    out = shard_verifier(fn, mesh)(*args)
+    if not bool(out["ok"].all()):
+        raise AssertionError("sharded verification failed")
+    n_pts = 4 * n_devices
+    pts = [bn254.g1_mul(bn254.G1_GEN, i + 1) for i in range(n_pts)]
+    scalars = [7 * i + 3 for i in range(n_pts)]
+    total = sharded_msm(C.g1_from_affine_ints(pts, device_type), ints_to_tensor(scalars, device_type), mesh)
+    if C.g1_to_affine_ints(C.G1(*(c[None] for c in total)))[0] != bn254.g1_msm(scalars, pts):
+        raise AssertionError("sharded MSM mismatch")
+    print(f"dryrun_multichip({n_devices}): ok")

@@ -10,6 +10,7 @@ the EVM verifier's revert paths.  All tensors are created on the loader's
 
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass
 from typing import Optional
 
@@ -24,6 +25,23 @@ from snark_verifier_tpu_torch.ops.curve import G1
 from snark_verifier_tpu_torch.util import bn254
 
 FR, FQ = F.FR, F.FQ
+
+# An IPA deciding key's generators on a device, built once per key and
+# device: (id(dk), device) -> (weak reference to dk, G1 of 2^k points).
+# Converting 2^20 python-int points takes seconds on the host; an entry goes
+# when its key is collected.
+_DK_POINTS: dict = {}
+
+
+def dk_points(dk, device) -> G1:
+    """``dk.g`` (python-int affine points) as a point batch on ``device``,
+    cached per key object and device; the key's ``g`` must not change."""
+    key = (id(dk), torch.device(device))
+    hit = _DK_POINTS.get(key)
+    if hit is None or hit[0]() is not dk:
+        ref = weakref.ref(dk, lambda _, key=key: _DK_POINTS.pop(key, None))
+        hit = _DK_POINTS[key] = (ref, CRV.g1_from_affine_ints(dk.g, device))
+    return hit[1]
 
 
 @dataclass
@@ -140,10 +158,21 @@ class TorchLoader(Loader):
 
     # -- decider hooks --------------------------------------------------------
     def decide_ipa(self, accumulator, dk):
-        raise NotImplementedError(
-            "TorchLoader.decide_ipa (the IPA decide over the large MSM) is not ported yet: "
-            "ROADMAP.md section 1, item 2"
-        )
+        """U == MSM(g, h_coeffs(xi)) per proof on the device, folded into
+        ``ok``; returns the (batch,) mask (pcs/ipa/decider.rs:47-55).  The
+        coefficients of h(X) = prod (1 + xi X^(2^i)) grow by one Fr product
+        per xi (k K1 launches); the batch's rows share ``dk.g`` and run as
+        one ``msm_serial_rows`` (window 8, unsigned: one K6 launch)."""
+        batch = self.batch_shape
+        coeffs = F.ones(batch + (1,), FR, self.device)
+        for x in reversed([x.value for x in accumulator.xi]):
+            coeffs = torch.cat([coeffs, F.mont_mul(coeffs, x[..., None, :], FR)], dim=-2)
+        scal = F.from_mont(coeffs, FR)  # (..., 2^k, 16)
+        expect = MSM.msm_serial_rows(dk_points(dk, self.device), scal.reshape((-1,) + scal.shape[-2:]))
+        expect = G1(*(c.reshape(batch + (F.NLIMB,)) for c in expect))
+        ok = CRV.g1_eq(expect, accumulator.u.value.as_proj())
+        self.require(ok)
+        return ok
 
     def decide_pairing(self, accumulator, dk):
         """e(lhs, g2) * e(rhs, -s_g2) == 1 per proof on the device, folded

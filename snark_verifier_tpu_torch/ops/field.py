@@ -69,9 +69,8 @@ class FieldSpec:
     def encode(self, values) -> np.ndarray:
         """Python ints (any nest) -> Montgomery limb array (uint32, trailing 16)."""
         arr = np.asarray(values, dtype=object)
-        flat = arr.reshape(-1)
-        out = np.stack([int_to_limbs(self.to_mont_int(int(v) % self.modulus)) for v in flat])
-        return out.reshape(arr.shape + (NLIMB,)).astype(np.uint32)
+        raw = b"".join(self.to_mont_int(int(v) % self.modulus).to_bytes(2 * NLIMB, "little") for v in arr.reshape(-1))
+        return np.frombuffer(raw, dtype="<u2").astype(np.uint32).reshape(arr.shape + (NLIMB,))
 
     def decode(self, limbs) -> np.ndarray:
         """Montgomery limb array or tensor -> numpy object array of ints."""

@@ -5,12 +5,13 @@ Counterpart of ``snark_verifier_tpu/ops/msm.py``: ``msm_batched``,
 ``_msm_batched_xla``, ``scalar_mul`` and ``_digits`` (small MSM), and
 ``msm_serial`` with ``_window_digits``, ``_signed_window_digits``,
 ``_bucket_totals``, ``_g1_suffix_scan`` and ``_horner_combine`` (large MSM,
-the JAX package's CPU reference layout; ``msm_serial_many`` runs several
-MSMs over one scalar set with one Horner combine, as the batch decide's
-two).  The TPU layout of the large MSM
-(``_bucket_runs_t``: transposed bit-reversed slabs, lane tiers) and
-``msm_serial_chunked``, which processes the windows in chunks, are not
-ported.
+the JAX package's CPU reference layout), and ``msm_serial_chunked``, which
+runs the windows ``win_chunk`` at a time.  Two batched forms end in ONE
+Horner combine (one K6 launch): ``msm_serial_many`` runs several point sets
+with one scalar set (the batch decide's two MSMs), ``msm_serial_rows`` one
+point set with several scalar rows (the IPA decide's rows).  The TPU layout
+of the large MSM (``_bucket_runs_t``: transposed bit-reversed slabs, lane
+tiers) is not ported.
 
 Scalars enter in canonical (non-Montgomery) limb form.
 """
@@ -120,6 +121,53 @@ def msm_serial(points: G1, scalars_canon, window: int = 8, signed: bool = False)
     return _horner_combine(window_totals(points, scalars_canon, window, signed), window)
 
 
+def msm_serial_chunked(points: G1, scalars_canon, window: int = 8, win_chunk: int = 8, signed: bool = False) -> G1:
+    """``msm_serial`` with the windows' bucket totals computed ``win_chunk``
+    windows at a time (the JAX package's ``msm_serial_chunked``, its CPU
+    layout): the digits and the padded points once, ``_bucket_totals`` on
+    each chunk of rows of the digit matrix, then one Horner combine (one K6
+    launch).  Each window row is sorted and reduced on its own against the
+    shared point table, so the limbs equal ``msm_serial``'s; the working
+    set is ~(win_chunk, n) points instead of (nwin, n).  ``win_chunk`` must
+    divide the window count."""
+    nwin = _window_count(window)
+    if win_chunk < 1 or nwin % win_chunk:
+        raise ValueError(f"win_chunk must divide the window count {nwin}, got {win_chunk}")
+    pts_pad = _pad_points(points)
+    dig, neg, nbuckets = _digit_rows(scalars_canon, window, signed, pts_pad.x.shape[0])
+    return _horner_combine(_chunked_totals(pts_pad, dig, neg, nbuckets, win_chunk), window)
+
+
+# Default digit rows per ``_bucket_totals`` call of ``msm_serial_rows``:
+# rows x padded points stays at 2^22, 4 rows of a 2^20-point MSM (~0.6 GB
+# of device memory per row at 2^20, with the shared point table).
+ROWS_POINTS = 1 << 22
+
+
+def msm_serial_rows(points: G1, scalars_canon_rows, window: int = 8, signed: bool = False,
+                    win_chunk: int | None = None) -> G1:
+    """B large MSMs over ONE point set (n,) with per-row scalars (B, n, 16)
+    canonical -> point batch (B,): the IPA decide's shape.  The points are
+    padded once; the (row, window) pairs flatten into the digit matrix's
+    row axis, (B * nwin, n), whose bucket totals run ``win_chunk`` rows at
+    a time (default: ``ROWS_POINTS`` // n) against the shared point table;
+    then ONE Horner combine (one K6 launch) over the (B, nwin) totals.  Row
+    i equals ``msm_serial(points, scalars_canon_rows[i])`` limb for limb."""
+    if scalars_canon_rows.dim() != 3 or scalars_canon_rows.shape[0] < 1:
+        raise ValueError(f"scalars must be (B >= 1, n, {NLIMB}), got {tuple(scalars_canon_rows.shape)}")
+    pts_pad = _pad_points(points)
+    n = pts_pad.x.shape[0]
+    rows = [_digit_rows(s, window, signed, n) for s in scalars_canon_rows]
+    dig = torch.cat([r[0] for r in rows])
+    neg = torch.cat([r[1] for r in rows]) if signed else None
+    del rows
+    if win_chunk is None:
+        win_chunk = max(1, ROWS_POINTS // n)
+    totals = _chunked_totals(pts_pad, dig, neg, _bucket_count(window, signed), win_chunk)
+    batch = scalars_canon_rows.shape[0]
+    return horner_combine(G1(*(c.reshape(batch, -1, NLIMB) for c in totals)), window)
+
+
 def msm_serial_many(point_sets, scalars_canon, window: int = 8, signed: bool = False) -> list:
     """``msm_serial`` of each point set (each (n,)) with the same scalars:
     each set's window totals, then ONE Horner combine (one K6 launch) over
@@ -133,24 +181,54 @@ def msm_serial_many(point_sets, scalars_canon, window: int = 8, signed: bool = F
 def window_totals(points: G1, scalars_canon, window: int = 8, signed: bool = False) -> G1:
     """The per-window bucket totals (nwin,) of ``msm_serial``: digits, the
     points padded to a power of two with identities, ``_bucket_totals``."""
+    pts_pad = _pad_points(points)
+    dig, neg, nbuckets = _digit_rows(scalars_canon, window, signed, pts_pad.x.shape[0])
+    return _bucket_totals(pts_pad, dig, nbuckets, neg)
+
+
+def _window_count(window: int) -> int:
+    return (NLIMB * LIMB_BITS + window - 1) // window
+
+
+def _bucket_count(window: int, signed: bool) -> int:
+    return (1 << (window - 1)) + 1 if signed else 1 << window
+
+
+def _pad_points(points: G1) -> G1:
+    """The points (n,) padded with identities to a power of two."""
     n_orig = points.x.shape[0]
-    dev = points.x.device
-    nwin = (NLIMB * LIMB_BITS + window - 1) // window
-    n = 1 << max(0, n_orig - 1).bit_length()  # identity points / zero digits pad n to a power of two
+    n = 1 << max(0, n_orig - 1).bit_length()
+    pad = C.g1_identity((n - n_orig,), points.x.device)
+    return G1(*(torch.cat([c, e]) for c, e in zip(points, pad)))
+
+
+def _digit_rows(scalars_canon, window: int, signed: bool, n: int):
+    """Scalars (n_orig, 16) -> the digit matrix (nwin, n), zero on the
+    padding, the sign mask (nwin, n) of signed digits (None unsigned), and
+    the bucket count."""
+    n_orig = scalars_canon.shape[0]
+    dev = scalars_canon.device
+    nwin = _window_count(window)
     dig = torch.zeros(nwin, n, dtype=torch.int64, device=dev)
     neg = None
     if signed:
-        nbuckets = (1 << (window - 1)) + 1
         sd = _signed_window_digits(scalars_canon, window, nwin)
         dig[:, :n_orig] = sd.abs().T
         neg = torch.zeros(nwin, n, dtype=torch.bool, device=dev)
         neg[:, :n_orig] = (sd < 0).T
     else:
-        nbuckets = 1 << window
         dig[:, :n_orig] = _window_digits(scalars_canon, window, nwin).T
-    pad = C.g1_identity((n - n_orig,), dev)
-    pts_pad = G1(*(torch.cat([c, e]) for c, e in zip(points, pad)))
-    return _bucket_totals(pts_pad, dig, nbuckets, neg)
+    return dig, neg, _bucket_count(window, signed)
+
+
+def _chunked_totals(pts_pad: G1, dig, neg, nbuckets: int, rows: int) -> G1:
+    """``_bucket_totals`` over ``rows`` rows of the digit matrix at a time,
+    the totals concatenated in row order."""
+    parts = [
+        _bucket_totals(pts_pad, dig[lo : lo + rows], nbuckets, None if neg is None else neg[lo : lo + rows])
+        for lo in range(0, dig.shape[0], rows)
+    ]
+    return G1(*(torch.cat(c) for c in zip(*parts)))
 
 
 def _check_flush_invariant(seg_e, valid) -> None:

@@ -1,6 +1,7 @@
 """Batched device verification: the loader-generic succinct PLONK verifier,
-specialised to one protocol and run over a batch of proofs, and the batch
-decider that folds the batch's accumulators into one pairing check.
+specialised to one protocol and run over a batch of proofs, the batch
+decider that folds the batch's accumulators into one pairing check, and the
+IPA opening verifier with its decide.
 
 Counterpart of ``snark_verifier_tpu/parallel/batch.py``.  Where the JAX
 package traces ``build_verifier``'s function into one XLA computation, the
@@ -14,13 +15,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from snark_verifier_tpu_torch.loader.torch_loader import TorchLoader
+from snark_verifier_tpu_torch.loader import EcPoint, Scalar
+from snark_verifier_tpu_torch.loader.torch_loader import TorchLoader, TorchPoint
 from snark_verifier_tpu_torch.ops import field as F
 from snark_verifier_tpu_torch.ops import msm as MSM
 from snark_verifier_tpu_torch.ops import pairing as PAIR
 from snark_verifier_tpu_torch.ops.curve import G1
 from snark_verifier_tpu_torch.ops.limbs import ints_to_limbs, limbs_to_int
+from snark_verifier_tpu_torch.pcs.ipa import Ipa, IpaAs
 from snark_verifier_tpu_torch.system.halo2.transcript_torch import TorchEvmTranscript, TorchPoseidonTranscript
+from snark_verifier_tpu_torch.util.msm_symbolic import Msm
 from snark_verifier_tpu_torch.verifier.plonk import PlonkSuccinctVerifier
 
 FR = F.FR
@@ -91,6 +95,41 @@ def build_verifier(protocol, As, svk, device="cuda", decide_dk=None, transcript_
             out = {k: torch.stack([c[k].expand(full) for c in per_acc]) for k in per_acc[0]}
         out["ok"] = loader.ok
         return out
+
+    return verify_fn
+
+
+def ipa_accumulate(svk, loader: TorchLoader, proof_bytes, c_x, c_y, z, v):
+    """The IPA succinct verify (``Ipa.read_proof`` + ``succinct_verify`` on
+    the Keccak transcript) of a batch of openings on ``loader``, each the
+    claim that the polynomial committed to as C opens to v at z; failed
+    checks AND into ``loader.ok``.  proof_bytes: (B, L) int64 byte values;
+    c_x, c_y: (B, 16) canonical Fq limbs of each affine commitment; z, v:
+    (B, 16) canonical Fr limbs.  Returns the ``IpaAccumulator`` (xi, U)."""
+    proof = Ipa.read_proof(svk, TorchEvmTranscript(proof_bytes, loader))
+    commitment = Msm.base(EcPoint(loader, TorchPoint(proj=to_g1(c_x, c_y))))
+    z_s, v_s = (Scalar(loader, F.to_mont(t, FR)) for t in (z, v))
+    return Ipa.succinct_verify(svk, commitment, z_s, v_s, proof)
+
+
+def build_ipa_verifier(svk, dk=None, device="cuda"):
+    """Returns ``fn(proof_bytes, c_x, c_y, z, v) -> result dict``: the IPA
+    opening verify of a batch (``ipa_accumulate``, all inputs on
+    ``device``).  Output: ``u_x, u_y`` (B, 16) canonical Fq limbs of the
+    accumulator's U (affine) and ``ok`` (B,).  With ``dk`` (an
+    ``IpaDecidingKey``), ``IpaAs.decide`` runs through the loader's
+    ``decide_ipa`` hook and folds U == MSM(g, h(xi)) into ``ok``."""
+    device = torch.device(device)
+
+    def verify_fn(proof_bytes, c_x, c_y, z, v):
+        if not all(on_device(t, device) for t in (proof_bytes, c_x, c_y, z, v)):
+            raise ValueError(f"inputs must be on {device}")
+        loader = TorchLoader(proof_bytes.shape[:-1], device)
+        acc = ipa_accumulate(svk, loader, proof_bytes, c_x, c_y, z, v)
+        if dk is not None:
+            IpaAs.decide(dk, acc)
+        u = acc.u.value.as_affine()
+        return {"u_x": F.from_mont(u.x, F.FQ), "u_y": F.from_mont(u.y, F.FQ), "ok": loader.ok}
 
     return verify_fn
 

@@ -633,3 +633,15 @@ def pairing_check(pairs) -> bool:
     """True iff prod e(p_i, q_i) == 1."""
     return final_exponentiation(multi_miller_loop(pairs)) == FQ12_ONE
 
+
+def fast_msm(scalars, points):
+    """MSM routed through the native C++ library when available
+    (util/native_ec.py), falling back to the pure-python oracle."""
+    try:
+        from snark_verifier_tpu_torch.util import native_ec
+
+        if native_ec.available():
+            return native_ec.msm(scalars, points)
+    except Exception:
+        pass
+    return g1_msm(scalars, points)

@@ -109,10 +109,23 @@ def test_verifier_with_decide_dk_folds_the_pairing_into_ok():
 def test_decide_entry_defaults_to_the_card():
     import inspect
 
-    for fn in (E.entry, E.decide_entry, build_verifier, build_batch_decider, pack_proofs, pack_instances):
+    from snark_verifier_tpu_torch.parallel.batch import build_ipa_verifier
+
+    for fn in (E.entry, E.decide_entry, build_verifier, build_batch_decider, pack_proofs, pack_instances,
+               build_ipa_verifier, E.pack_ipa_openings):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+    from snark_verifier_tpu_torch.loader import EcPoint
     from snark_verifier_tpu_torch.loader.torch_loader import TorchLoader
+    from snark_verifier_tpu.pcs.ipa import h_coeffs
+    from snark_verifier_tpu_torch.pcs.ipa import IpaAccumulator, IpaProvingKey
 
     assert inspect.signature(TorchLoader).parameters["device"].default == "cuda"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchLoader((1,), "cpu").decide_ipa(None, None)
+    # the IPA decide on the loader's device: a valid accumulator of a small key
+    dk = IpaProvingKey.rand(2, False, seed=5).dk()
+    xi = [3, 1 << 200, bn254.R - 1]
+    loader = TorchLoader((1,), "cpu")
+    acc = IpaAccumulator([loader.load_const(x) for x in xi[:2]],
+                         loader.ec_point_load_const(bn254.g1_msm(h_coeffs(xi[:2], 1), dk.g)))
+    assert isinstance(acc.u, EcPoint)
+    ok = loader.decide_ipa(acc, dk)
+    assert ok.device == loader.device and ok.tolist() == [True] and loader.ok.tolist() == [True]

@@ -175,3 +175,135 @@ def test_flush_invariant_check(monkeypatch):
         real(torch.tensor([[2, 1, 3, 3]]), torch.tensor([[True, False, False, True]]))
     with pytest.raises(AssertionError, match="more than one"):
         real(seg, torch.tensor([[True, True, False, False]]))
+
+
+# -- the chunked and the row-batched large MSM -------------------------------
+
+CHUNK_GRID = [
+    (n, window, signed, chunk)
+    for n in (37, 64)
+    for window in (4, 8)
+    for signed in (False, True)
+    for chunk in range(1, 256 // window + 1)
+    if (256 // window) % chunk == 0
+]
+
+
+def row_stand_in(pts_pad, dig, nbuckets, neg=None):
+    """A cheap stand-in for ``_bucket_totals`` that is row-wise like it: each
+    digit row's "total" is a limb pattern of that row's digits and signs
+    alone, so any split of the rows into chunks must give the same totals
+    in the same order."""
+    sign = 1 - 2 * neg.long() if neg is not None else 1
+    key = (dig * sign * torch.arange(1, dig.shape[1] + 1)).sum(1, keepdim=True) + nbuckets
+    limbs = key * torch.arange(1, 17) % 65521
+    return C.G1(limbs, limbs + 1, limbs + 2)
+
+
+def horner_stand_in(totals, window):
+    """A cheap stand-in for the Horner combine (K6) that weighs each
+    window's "total" by its place, so the windows' order counts."""
+    w = torch.arange(1, totals.x.shape[-2] + 1).unsqueeze(-1) * (window + 1)
+    return C.G1(*((c * w).sum(-2) % 2147483647 for c in totals))
+
+
+@pytest.mark.parametrize("n,window,signed,chunk", CHUNK_GRID)
+def test_msm_serial_chunked_orders_its_chunks(monkeypatch, n, window, signed, chunk):
+    """Every ``win_chunk`` that divides the window count, at n = 37 (padded)
+    and 64, windows 4 and 8, signed and unsigned: the chunked MSM's limbs
+    equal ``msm_serial``'s with the bucket accumulation and the Horner
+    combine replaced by cheap stand-ins (row-wise and order-sensitive) in
+    both, so each case holds the chunking itself: the padding, the digit
+    and sign rows of each chunk, their order, ``nwin / win_chunk`` bucket
+    calls and one Horner combine.  The real computation under chunking: the
+    next tests."""
+    pts, scalars = rand_case(20 + n, n)
+    g, s = C.g1_from_affine_ints(pts, "cpu"), ints_to_tensor(scalars, "cpu")
+    calls, horners = [], []
+    monkeypatch.setattr(M, "_bucket_totals", lambda *a: calls.append(a[1].shape[0]) or row_stand_in(*a))
+    monkeypatch.setattr(M, "horner_combine", lambda t, w: horners.append(t.x.shape) or horner_stand_in(t, w))
+    want = M.msm_serial(g, s, window, signed)
+    assert calls == [256 // window] and horners == [(1, 256 // window, 16)]
+    calls.clear()
+    got = M.msm_serial_chunked(g, s, window, chunk, signed)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert calls == [chunk] * (256 // window // chunk) and len(horners) == 2
+
+
+@pytest.mark.parametrize("n,window,signed,chunk", [(37, 4, False, 16), (64, 4, True, 4), (37, 5, True, 13)])
+def test_msm_serial_chunked_matches_msm_serial_and_oracle(n, window, signed, chunk):
+    """The real chunked MSM, limb for limb against ``msm_serial``, and the
+    oracle in affine: windows 4 and 5 (5 straddles the 16-bit limbs; 52
+    windows in 4 chunks of 13), signed and unsigned, padded and not."""
+    pts, scalars = rand_case(30 + n, n)
+    scalars[1] = bn254.R - 1
+    g, s = C.g1_from_affine_ints(pts, "cpu"), ints_to_tensor(scalars, "cpu")
+    got = M.msm_serial_chunked(g, s, window, chunk, signed)
+    assert_limbs(got, g1_to_numpy(M.msm_serial(g, s, window, signed)))
+    assert C.g1_to_affine_ints(C.G1(*(c[None] for c in got))) == [bn254.g1_msm(scalars, pts)]
+
+
+@pytest.mark.parametrize("signed", [False, True])
+def test_msm_serial_chunked_matches_jax_chunked(monkeypatch, signed):
+    """The JAX package's ``msm_serial_chunked`` (its CPU branch: digits,
+    padding, one digit chunk at a time, totals concatenated, one Horner
+    combine) with its two jitted steps routed to the port's
+    ``_bucket_totals`` and ``_horner_combine`` (their jit compiles take
+    minutes on the CPU; both are held against the JAX package's own limb for
+    limb above): the chunks it cuts equal the port's, and both results equal
+    the oracle in affine."""
+    window, chunk, n = 4, 16, 37
+    pts, scalars = rand_case(40, n)
+    g, s = C.g1_from_affine_ints(pts, "cpu"), ints_to_tensor(scalars, "cpu")
+    jax_chunks = []
+
+    def chunk_totals(pts_pad, dchunk, nbuckets, nchunk=None):
+        jax_chunks.append((np.asarray(dchunk).astype(np.int64), None if nchunk is None else np.asarray(nchunk)))
+        neg = None if nchunk is None else torch.as_tensor(np.array(nchunk))
+        out = M._bucket_totals(g1_from_numpy(pts_pad, "cpu"), torch.as_tensor(jax_chunks[-1][0]), nbuckets, neg)
+        return JC.G1(*(jnp.asarray(c) for c in g1_to_numpy(out)))
+
+    monkeypatch.setattr(JM, "_use_tree_t", lambda: False)
+    monkeypatch.setattr(JM, "_chunk_totals", chunk_totals)
+    monkeypatch.setattr(JM, "_horner_jit", lambda t, w: JC.G1(
+        *(jnp.asarray(c) for c in g1_to_numpy(M._horner_combine(g1_from_numpy(t, "cpu"), w)))))
+    jax_out = JM.msm_serial_chunked(JC.g1_from_affine_ints(pts), jnp.asarray(ints_to_limbs(scalars)), window, chunk,
+                                    signed)
+    dig, neg, _ = M._digit_rows(s, window, signed, 64)
+    assert len(jax_chunks) == 256 // window // chunk
+    for i, (d, ng) in enumerate(jax_chunks):
+        np.testing.assert_array_equal(d, dig[i * chunk : (i + 1) * chunk].numpy())
+        if signed:
+            np.testing.assert_array_equal(ng, neg[i * chunk : (i + 1) * chunk].numpy())
+    port = M.msm_serial_chunked(g, s, window, chunk, signed)
+    assert_limbs(port, [np.asarray(c) for c in jax_out])
+    assert C.g1_to_affine_ints(C.G1(*(c[None] for c in port))) == [bn254.g1_msm(scalars, pts)]
+
+
+def test_msm_serial_rows_equals_msm_serial_per_row():
+    """B = 3 scalar rows over one point set (a zero row among them), in
+    chunks of 7 digit rows that straddle the scalar rows' boundaries: row i
+    equals ``msm_serial(points, scalars[i])`` limb for limb (the zero row
+    the identity), and the oracle in affine.  The default chunk (all rows
+    at once at this size) runs in every IPA decide (test_torch_ipa.py)."""
+    window = 4
+    pts, scalars = rand_case(50, 37)
+    g = C.g1_from_affine_ints(pts, "cpu")
+    rows = torch.stack([ints_to_tensor(scalars, "cpu"), ints_to_tensor(scalars[::-1], "cpu"),
+                        ints_to_tensor([0] * 37, "cpu")])
+    got = M.msm_serial_rows(g, rows, window, win_chunk=7)
+    assert got.x.shape == (3, 16)
+    for i in (0, 1):
+        assert_limbs(C.G1(*(c[i] for c in got)), g1_to_numpy(M.msm_serial(g, rows[i], window)))
+    assert bool(C.g1_is_identity(C.G1(*(c[2] for c in got))))
+    assert C.g1_to_affine_ints(got) == [bn254.g1_msm(scalars, pts), bn254.g1_msm(scalars[::-1], pts), None]
+
+
+def test_msm_serial_chunked_refuses_a_chunk_that_does_not_divide():
+    g = C.g1_from_affine_ints(rand_case(60, 3)[0], "cpu")
+    s = ints_to_tensor([1, 2, 3], "cpu")
+    for window, chunk in ((8, 3), (4, 5), (8, 0), (8, 64)):
+        with pytest.raises(ValueError, match="win_chunk"):
+            M.msm_serial_chunked(g, s, window, chunk)
+    with pytest.raises(ValueError, match="scalars"):
+        M.msm_serial_rows(g, s, 8)

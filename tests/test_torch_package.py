@@ -33,11 +33,13 @@ ORIGINAL = REPO / "snark_verifier_tpu"
 
 # The port's copies of JAX-free modules of the JAX package, at the same
 # relative paths -> the top-level definitions of the original that the copy
-# leaves out (the port does not use them).
+# leaves out (the port does not use them).  The port has no
+# ``util/native_ec.py``, so its ``bn254.fast_msm`` (the IPA prover's and
+# native decide's MSM) always takes the pure-python oracle.
 COPIES = {
     "errors.py": (),
     "util/__init__.py": (),
-    "util/bn254.py": ("fast_msm",),
+    "util/bn254.py": (),
     "util/fraction.py": (),
     "util/msm_symbolic.py": (),
     "util/transcript.py": (),
@@ -61,6 +63,8 @@ COPIES = {
     "pcs/kzg/bdfg21.py": (),
     "pcs/kzg/decider.py": (),
     "pcs/kzg/gwc19.py": (),
+    "pcs/ipa/__init__.py": (),
+    "pcs/ipa/bgh19.py": (),
     "system/__init__.py": (),
     "system/halo2/__init__.py": (),
     "system/halo2/transcript.py": ("NativeBlake2bTranscript",),

@@ -100,19 +100,25 @@ def test_corrupted_proof_and_wrong_instance(jax_gwc):
     assert not jax_decide(fx.dk, *bad_instance)
 
 
-def test_decide_and_poseidon_are_not_ported_yet():
-    """The pairing decide (test_torch_decide.py) and the Poseidon transcript
-    (test_torch_poseidon.py) are ported; an unknown transcript is refused,
-    and the IPA decide, not ported yet, says where it stands."""
+def test_decides_and_transcripts_are_ported():
+    """The pairing decide (test_torch_decide.py), the Poseidon transcript
+    (test_torch_poseidon.py) and the IPA decide (test_torch_ipa.py) are
+    ported: an unknown transcript is refused, and an IPA opening on a small
+    key verifies and decides True."""
+    import random
+
+    from snark_verifier_tpu_torch.parallel.batch import build_ipa_verifier
+    from snark_verifier_tpu_torch.pcs.ipa import IpaProvingKey
+
     fx = E.fixture()
     build_verifier(fx.protocol, fx.As, fx.svk, device="cpu", decide_dk=fx.dk)
     build_verifier(fx.protocol, fx.As, fx.svk, device="cpu", transcript_kind="poseidon")
     with pytest.raises(ValueError, match="transcript_kind"):
         build_verifier(fx.protocol, fx.As, fx.svk, device="cpu", transcript_kind="blake2b")
-    from snark_verifier_tpu_torch.loader.torch_loader import TorchLoader
-
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchLoader((1,), "cpu").decide_ipa(None, fx.dk)
+    pk = IpaProvingKey.rand(2, False, seed=3)
+    opening = E.ipa_opening(pk, random.Random(4))
+    out = build_ipa_verifier(pk.svk(), pk.dk(), "cpu")(*E.pack_ipa_openings([opening], "cpu"))
+    assert out["ok"].tolist() == [True]
 
 
 def test_ec_point_from_limbs_decodes_and_checks_the_curve():
