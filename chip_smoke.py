@@ -42,12 +42,15 @@ of both its accumulators) and config 4's aggregation fold:
    shapes with a projective accumulator, the step onto the identity, an
    identity contribution and contrib = +-16 acc (the add's doubling case,
    and a sum that is the identity), its device time per launch and one
-   proof's chain;
+   proof's chain; K10 (the Poseidon permutation, one launch) at (1820, 5)
+   and (1, 5) rows and batch shape () with 0-4 inputs, expanded (stride-0)
+   and broadcast operands, against the python-int oracle on three rows, its
+   device time per launch and one row's launch less an empty one;
 4. slice: 1820 proofs (4 unique ones tiled, 2 rows with a corrupted
    commitment, 1 row with a wrong instance) from the data-file fixture;
    accumulators equal the native verifier's, ``ok`` False exactly on the
    corrupted rows, K1-K4 and ``mont_pow`` launched by the run (at most 230
-   K1 launches, 6 K2 and 8 K3 launches), and the host pairing oracle decides a good and the
+   K1 launches, 6 K2 and 8 K3 launches, no K10), and the host pairing oracle decides a good and the
    wrong-instance accumulator; warm time, proofs/s, peak memory, and a
    torch.profiler breakdown of one warm verify;
 5. SHPLONK through the same code at 64 proofs;
@@ -66,14 +69,16 @@ of both its accumulators) and config 4's aggregation fold:
 8. Poseidon slice: 1820 Poseidon-transcript proofs (4 unique ones tiled, a
    compressed point with x >= p in one row, a non-residue x in another, a
    wrong instance in a third); accumulators equal the native verifier's,
-   ``ok`` False exactly on the two corrupted rows, K1-K4 launched; warm
-   time, proofs/s, peak memory, K1 launches, and a profile with the share
-   of the Poseidon permutations and point reads in device time and host ops;
+   ``ok`` False exactly on the two corrupted rows, K1-K4 launched, one K10
+   launch per permutation (14) and fewer than 400 K1 launches; warm time,
+   proofs/s, peak memory, K1 launches, and a profile with the share of the
+   Poseidon permutations and point reads in device time and host ops;
 9. aggregation: ``entry.aggregation_entry`` (the k=20 outer snark at B=8,
    both accumulators decided per proof) with ``MEGA`` on (K4) and off
    (K8/K9): both accumulators equal the native verifier's, ``ok`` all True,
    a mutated proof byte and a flipped instance limb clear it, the two runs
-   agree, 8 K3 launches in each and 128 of K8 and of K9 with ``MEGA`` off;
+   agree, 8 K3 launches in each and 128 of K8 and of K9 with ``MEGA`` off,
+   K10 launched;
    warm times, and a profile of the ``MEGA``-off run; then K8 and K9
    against their plain versions, and K4 against its plain version and
    K8/K9, bit for bit, on the inputs of that run's first two-kernel MSM (the
@@ -150,12 +155,15 @@ KERNELS = {  # name -> (source, TPU kernel replaced)
     "msm_horner": ("snark_verifier_tpu_torch/csrc/msm.cu", "snark_verifier_tpu/ops/msm_pallas.py:232"),
     "miller_loop": ("snark_verifier_tpu_torch/csrc/tower.cu", "snark_verifier_tpu/ops/tower_pallas.py:97"),
     "final_exp": ("snark_verifier_tpu_torch/csrc/tower.cu", "snark_verifier_tpu/ops/tower_pallas.py:97"),
+    "poseidon_perm": ("snark_verifier_tpu_torch/csrc/poseidon.cu", "none (XLA: snark_verifier_tpu/ops/poseidon.py:168)"),
 }
 PAIRING_KERNELS = ("miller_loop", "final_exp")  # K7's kernels on the pairing path
 SLICE_KERNELS = ("mont_mul", "mont_pow", "g1_add", "g1_double", "msm_scan")
 DECIDE_KERNELS = ("mont_mul", "mont_pow", "g1_add", "g1_add_select", "horner_combine", *PAIRING_KERNELS)
-AGG_MEGA_KERNELS = ("mont_mul", "mont_pow", "g1_add", "g1_double", "msm_scan", *PAIRING_KERNELS)  # outer snark, MEGA on
-AGG_WINDOWED_KERNELS = ("mont_mul", "mont_pow", "g1_add", "g1_double", "msm_window", "msm_horner",
+POSEIDON_KERNELS = (*SLICE_KERNELS, "poseidon_perm")  # the Poseidon-transcript verify
+AGG_MEGA_KERNELS = ("mont_mul", "mont_pow", "g1_add", "g1_double", "msm_scan", "poseidon_perm",
+                    *PAIRING_KERNELS)  # outer snark, MEGA on
+AGG_WINDOWED_KERNELS = ("mont_mul", "mont_pow", "g1_add", "g1_double", "msm_window", "msm_horner", "poseidon_perm",
                         *PAIRING_KERNELS)  # MEGA off
 PAIRING_BATCHES = (1, 8)  # K7's pairing kernels: the decide's batch and the outer snark's
 SCAN_SWEEP_BATCHES = (8, 66, 132, 264, 400, 528, 800, 1056, 1320, 1820)  # K4's geometry sweep
@@ -166,6 +174,10 @@ IPA_KERNELS = ("mont_mul", "mont_pow", "g1_add", "g1_double", "msm_scan", "g1_ad
 IPA_DECIDE_K, IPA_DECIDE_BATCH = 20, 4  # the IPA decide at full width: 2^20 generators, 4 accumulators
 CHUNK = 8  # msm_serial_chunked's win_chunk (the JAX default) at 2^20 and 2^22
 DECIDE_MAX_K1, DECIDE_MAX_POW, VERIFY_MAX_K1 = 16, 2, 230  # launch ceilings on the decide and the Keccak verify
+# K10 on the Poseidon verify: one launch per permutation of the transcript,
+# 14 a batch, and a ceiling on its K1 launches (4856 before K10)
+POSEIDON_PERMS, POSEIDON_MAX_K1 = 14, 400
+POSEIDON_LEVELS = 4  # dependent products a round on K10's chain: the S-box's 3, then the matrix
 # K2/K5: the widths of their launches on the main path (the decide's bucket
 # tree 32768 ... 32 pairs, flushes 8192, tree sums 4096 ... 32, suffix scans
 # 8192 ... 32; the verify's table build 32760), and their launch counts
@@ -644,6 +656,72 @@ def phase_kernels_field(torch, dev, rng):
     return results
 
 
+def poseidon_products(spec) -> int:
+    """Montgomery products of one sparse-form permutation: a full round t
+    S-boxes of 3 and the t x t matrix, a partial round one S-box, the row's
+    t products and the column's t - 1."""
+    return spec.r_f * spec.t * (3 + spec.t) + spec.r_p * (3 + 2 * spec.t - 1)
+
+
+def phase_kernels_poseidon(torch, dev, rng, results_field):
+    """K10 ``poseidon_perm`` against ``permutation_plain``, bit for bit: at
+    (1820, 5) and (1, 5) rows and batch shape (), with 0-4 inputs, with
+    expanded (stride-0) inputs and state and with inputs broadcast over the
+    rows; against the python-int oracle on three rows; its device ms per
+    launch at 1820 rows and one row's launch less an empty launch, beside
+    its bound and its critical path (``POSEIDON_LEVELS`` x rounds product
+    latencies)."""
+    from snark_verifier_tpu_torch.ops import field as F
+    from snark_verifier_tpu_torch.ops import poseidon as P
+    from snark_verifier_tpu_torch.util import poseidon as PO
+
+    spec = PO.default_spec()
+    t = spec.t
+
+    def fr(n):
+        vals = [rng.randrange(F.FR.modulus) for _ in range(n)]
+        return vals, torch.as_tensor(F.FR.encode(vals).astype("int64"), device=dev)
+
+    sv, state = fr(B * t)
+    iv, ins = fr(B * (t - 1))
+    state, ins = state.reshape(B, t, 16), ins.reshape(t - 1, B, 16)
+    cases = []
+    for n in range(t):
+        cases += [(f"({rows}, {t}) n={n}", state[:rows], [ins[k, :rows] for k in range(n)]) for rows in (B, 1)]
+        cases.append((f"() n={n}", state[0], [ins[k, 0] for k in range(n)]))
+        cases.append((f"({B}, {t}) expanded n={n}", state[0].expand(B, t, 16), [ins[k, 0].expand(B, 16) for k in range(n)]))
+        cases.append((f"({B}, {t}) broadcast inputs n={n}", state, [ins[k, 0] for k in range(n)]))
+    for what, st, inputs in cases:
+        got, want = P.poseidon_perm(spec, st, inputs), P.permutation_plain(spec, st, inputs)
+        torch.cuda.synchronize()
+        require(got.shape == want.shape and torch.equal(got, want), f"poseidon_perm {what}: != plain")
+    full = [ins[k] for k in range(t - 1)]
+    got = P.poseidon_perm(spec, state[:3], [x[:3] for x in full])
+    for b in range(3):
+        want = PO.permutation(spec, sv[b * t:(b + 1) * t], [iv[k * B + b] for k in range(t - 1)])
+        require([int(v) for v in F.FR.decode(got[b])] == want, f"poseidon_perm row {b}: != python-int oracle")
+    log(f"kernel poseidon_perm: equal to plain at {len(cases)} cases ((B, 5) and (1, 5) rows, batch (), 0-4 inputs, "
+        f"expanded and broadcast operands) and to the python-int oracle")
+
+    products = poseidon_products(spec)
+    latency = results_field["mont_pow"]["product_latency_ms"]["fmul_eo"]
+    b = bound(B * (2 * t + t - 1) * FE_BYTES, products * B)
+    ms = cuda_ms(torch, lambda: P.poseidon_perm(spec, state, full))
+    per_launch = device_ms(torch, lambda: P.poseidon_perm(spec, state, full), reps=20)
+    one = one_item_chain(torch, lambda: P.poseidon_perm(spec, state[:1], [x[:1] for x in full]), reps=20)
+    _, plain_ms = timed_once(torch, lambda: P.permutation_plain(spec, state, full))
+    levels = POSEIDON_LEVELS * (spec.r_f + spec.r_p)
+    res = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "shape": {"rows": B, "t": t, "inputs": t - 1},
+           **b, "device_ms": per_launch, "one_row": one, "products": products,
+           "critical_path_ms": levels * latency, "products_ms": products * latency}
+    log(f"kernel poseidon_perm ({B} rows, t={t}, {t - 1} inputs, {products} products a row): call {ms:.4f} ms, "
+        f"device ms per launch {per_launch:.6f}, one row's launch less an empty one {one['chain_ms']:.6f} ms; plain "
+        f"{plain_ms:.4f} ms; bound {b['bound_ms']:.6f} ms ({b['bound_by']}); critical path {levels} x "
+        f"{latency * 1e3:.4f} us = {levels * latency:.6f} ms; all {products} products on one chain "
+        f"{products * latency:.6f} ms")
+    return res
+
+
 def scan_sweep(torch, table, digits, want):
     """K4's one launch parameter, proofs per block (1-8), at each batch of
     ``SCAN_SWEEP_BATCHES`` (the first b proofs of config 1's MSM): every
@@ -1036,15 +1114,15 @@ def wrappers():
     from snark_verifier_tpu_torch.ops import curve_cuda as CK
     from snark_verifier_tpu_torch.ops import field_cuda as FK
     from snark_verifier_tpu_torch.ops import msm_cuda as MK
-    from snark_verifier_tpu_torch.ops import tower_cuda as TC
-
     from snark_verifier_tpu_torch.ops import pairing as PAIR
+    from snark_verifier_tpu_torch.ops import poseidon as P
+    from snark_verifier_tpu_torch.ops import tower_cuda as TC
 
     return {"mont_mul": FK.mont_mul, "mont_pow": FK.mont_pow, "g1_add": CK.g1_add, "g1_double": CK.g1_double,
             "msm_scan": MK.msm_scan, "g1_add_select": CK.g1_add_select, "horner_combine": MK.horner_combine,
             "fq12_mul": TC.fq12_mul_flat,
             "msm_window": MK.msm_window, "msm_horner": MK.msm_horner, "miller_loop": PAIR.miller_loop_pair,
-            "final_exp": PAIR.final_exponentiation}
+            "final_exp": PAIR.final_exponentiation, "poseidon_perm": P.poseidon_perm}
 
 
 def count_launches(torch, run, required, absent=()):
@@ -1151,10 +1229,14 @@ def phase_poseidon(torch, dev, card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    out, launches = count_launches(torch, lambda: fn(*args), SLICE_KERNELS)
+    out, launches = count_launches(torch, lambda: fn(*args), POSEIDON_KERNELS)
     first_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev)
     log(f"poseidon first run: {first_s:.3f} s; launches {launches}")
+    require(launches["poseidon_perm"] == POSEIDON_PERMS,
+            f"poseidon: {launches['poseidon_perm']} K10 launches, not one per permutation ({POSEIDON_PERMS})")
+    require(launches["mont_mul"] < POSEIDON_MAX_K1,
+            f"poseidon: {launches['mont_mul']} K1 launches, not under {POSEIDON_MAX_K1}")
     ok = out["ok"].cpu().tolist()
     require(ok == [row not in bad_rows for row in range(B)],
             "poseidon: ok must be False exactly on the corrupted rows (x >= p, non-residue x)")
@@ -1171,7 +1253,7 @@ def phase_poseidon(torch, dev, card):
     warm, times = warm_times(torch, fn, args, reps=3)
     log(f"poseidon warm verify (k=8, B={B}, GWC, Poseidon transcript): median {warm:.4f} s of "
         f"{[round(t, 4) for t in times]}, {B / warm:.1f} proofs/s, peak memory {peak / 2**20:.1f} MiB, "
-        f"K1 launches {launches['mont_mul']}, on {card}")
+        f"K1 launches {launches['mont_mul']}, K10 launches {launches['poseidon_perm']}, on {card}")
 
     from torch.profiler import record_function
 
@@ -1185,11 +1267,11 @@ def phase_poseidon(torch, dev, card):
     P.permutation = ranged("poseidon_permutation", perm)
     TT.TorchPoseidonTranscript.read_ec_point = ranged("poseidon_point_read", read)
     try:
-        _, least = profile_run(torch, "poseidon", "msm_scan", fn, args, warm,
-                               ranges=("poseidon_permutation", "poseidon_point_read"))
+        per_launch, least = profile_run(torch, "poseidon", "poseidon_perm", fn, args, warm,
+                                        ranges=("poseidon_permutation", "poseidon_point_read"))
     finally:
         P.permutation, TT.TorchPoseidonTranscript.read_ec_point = perm, read
-    return launches, least
+    return launches, per_launch, least
 
 
 def phase_aggregation(torch, dev, card):
@@ -1364,7 +1446,7 @@ def phase_slice(torch, dev, card):
     t0 = time.perf_counter()
     widths, restore = add_launch_recorder(CK)
     try:
-        out, launches = count_launches(torch, lambda: fn(*args), SLICE_KERNELS)
+        out, launches = count_launches(torch, lambda: fn(*args), SLICE_KERNELS, absent=("poseidon_perm",))
     finally:
         restore()
     first_s = time.perf_counter() - t0
@@ -2083,6 +2165,7 @@ def main() -> int:
     results.update(phase_kernels_decide(torch, dev, rng, results))
     for name, res in phase_kernels_add(torch, dev, rng, results).items():
         results[name]["lanes"] = res
+    results["poseidon_perm"] = phase_kernels_poseidon(torch, dev, rng, results)
     done("kernels")
     slice_launches, slice_per_launch, slice_least, out, wrong_row, verify_s = phase_slice(torch, dev, smi)
     phase_shplonk(torch, dev)
@@ -2092,7 +2175,7 @@ def main() -> int:
     done("decide")
     phase_msm(torch, dev, smi, rng)
     done("large MSM")
-    poseidon_launches, poseidon_least = phase_poseidon(torch, dev, smi)
+    poseidon_launches, poseidon_per_launch, poseidon_least = phase_poseidon(torch, dev, smi)
     done("poseidon")
     agg_launches, agg_per_launch, agg_least, agg_msm = phase_aggregation(torch, dev, smi)
     on_path, scan_on_path = phase_kernels_on_path(torch, *agg_msm)
@@ -2125,9 +2208,11 @@ def main() -> int:
     # kernels), the outer snark with MEGA off for K8-K9
     windowed = ("msm_window", "msm_horner")
     launches = {**{k: decide_launches[k] for k in (*DECIDE_KERNELS, "fq12_mul")},
-                **{k: slice_launches[k] for k in SLICE_KERNELS}, **{k: agg_launches[k] for k in windowed}}
+                **{k: slice_launches[k] for k in SLICE_KERNELS}, **{k: agg_launches[k] for k in windowed},
+                "poseidon_perm": poseidon_launches["poseidon_perm"]}
     path_ms = {**{k: decide_per_launch.get(k) for k in (*DECIDE_KERNELS, "fq12_mul")},
-               **{k: slice_per_launch.get(k) for k in SLICE_KERNELS}, **{k: agg_per_launch.get(k) for k in windowed}}
+               **{k: slice_per_launch.get(k) for k in SLICE_KERNELS}, **{k: agg_per_launch.get(k) for k in windowed},
+               "poseidon_perm": poseidon_per_launch.get("poseidon_perm")}
     # the per-launch floor: the least device time any one kernel launch took
     # in the path profiles; no launch, however little its work, takes less
     floors = [t for t in (slice_least, decide_least, poseidon_least, agg_least) if t is not None]
@@ -2142,7 +2227,7 @@ def main() -> int:
     paths = {"verify": slice_launches, "decide": decide_launches, "poseidon_verify": poseidon_launches,
              "outer_snark_mega_off": agg_launches}
     for row in report:
-        if row["name"] in ("mont_mul", "mont_pow"):
+        if row["name"] in ("mont_mul", "mont_pow", "poseidon_perm"):
             row["launches_by_path"] = {k: v[row["name"]] for k, v in paths.items()}
         row["ptxas"] = {k: v for k, v in ptxas.items() if k.split(" ")[0] == row["name"]}
         if row["name"] in ("g1_add", "g1_add_select"):

@@ -8,24 +8,32 @@ pre-sparse boundary round, partial rounds with a sparse row/column matrix,
 end full rounds with a zero-padded last row of constants), about 2.6x fewer
 Montgomery products than the raw rounds.
 
-Where the JAX package runs the rounds as ``lax.scan``, the port runs a
-Python loop over them.  The Montgomery products go through ``field.mont_mul``
-(kernel K1 on CUDA tensors); the rest is plain PyTorch.  The constants are
-built from the port's copies of ``util/poseidon.py`` and
-``util/poseidon_opt.py``, cached as numpy arrays per spec and copied once to
-each device that asks for them.
+Where the JAX package runs the rounds as ``lax.scan``, ``permutation`` runs
+kernel K10 (``csrc/poseidon.cu``) on CUDA tensors: the absorb and all the
+rounds in one launch, from one flat table of the constants (``flat_table``).
+On CPU tensors it runs ``permutation_plain``, a Python loop over the rounds
+whose Montgomery products go through ``field.mont_mul`` and the rest is
+plain PyTorch.  The constants are built from the port's copies of
+``util/poseidon.py`` and ``util/poseidon_opt.py``, cached as numpy arrays per
+spec and copied once to each device that asks for them.
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
+from snark_verifier_tpu_torch import _build
+from snark_verifier_tpu_torch.config import use_kernel
 from snark_verifier_tpu_torch.ops import field as F
-from snark_verifier_tpu_torch.ops.limbs import int_to_limbs
+from snark_verifier_tpu_torch.ops.field_cuda import _aligned, check_limbs, field_arg, stream_of
+from snark_verifier_tpu_torch.ops.limbs import NLIMB, int_to_limbs
 from snark_verifier_tpu_torch.util.poseidon_opt import optimize_spec
 
 FR = F.FR
+KERNEL_T = 5  # the one state width t that K10 is instantiated for (csrc/poseidon.cu)
 
 _NUMPY_CACHE: dict = {}  # id(spec) -> (spec, numpy arrays)
 _DEVICE_CACHE: dict = {}  # (id(spec), device) -> tensors
@@ -63,11 +71,26 @@ def spec_arrays(spec) -> dict:
     return _NUMPY_CACHE[key][1]
 
 
+def flat_table(spec) -> np.ndarray:
+    """K10's constants as one (size, 16) int64 limb array, in the order the
+    rounds read them (csrc/poseidon.cu ``table_offsets``): the round-0 and
+    r_f / 2 start rows, the dense MDS, the pre-sparse MDS, 2 t elements per
+    partial round (its post-S-box constant, its row, its column), the r_f /
+    2 end rows."""
+    a = spec_arrays(spec)
+    partial = np.concatenate([a["c_partial"][:, None], a["sp_row"], a["sp_col"]], axis=1)
+    parts = (a["c_start"], a["mds"], a["pre_sparse"], partial, a["c_end"])
+    return np.concatenate([x.reshape(-1, NLIMB) for x in parts])
+
+
 def _tensors(spec, device) -> dict:
+    """The spec's constants on ``device``: ``spec_arrays``' arrays and K10's
+    ``table``, copied once per spec and device."""
     device = torch.device(device)
     key = (id(spec), device)
     if key not in _DEVICE_CACHE:
-        _DEVICE_CACHE[key] = {k: torch.as_tensor(v, device=device) for k, v in spec_arrays(spec).items()}
+        arrays = {**spec_arrays(spec), "table": flat_table(spec)}
+        _DEVICE_CACHE[key] = {k: torch.as_tensor(v, device=device) for k, v in arrays.items()}
     return _DEVICE_CACHE[key]
 
 
@@ -102,8 +125,8 @@ def _mds_apply(mat, st):
     return acc
 
 
-def permutation(spec, state, inputs):
-    """The sparse-form permutation.
+def permutation_plain(spec, state, inputs):
+    """The sparse-form permutation in plain PyTorch, K10's plain version.
 
     state: (..., t, 16) Montgomery; inputs: list of (..., 16) Montgomery
     scalars (fewer than t).  A partial round is 5 Montgomery products (t =
@@ -132,6 +155,52 @@ def permutation(spec, state, inputs):
     for k in range(half):
         st = full_round(st, c["c_end"][k], c["mds"])
     return st
+
+
+def poseidon_perm(spec, state, inputs):
+    """K10: the permutation of every row in one launch, on CUDA tensors (a
+    row on a group of 8 lanes, lane j holding state word j).
+
+    The batch is the broadcast of the state's and the inputs' batch shapes,
+    flattened to rows; the state and the inputs (expanded ones included) are
+    copied into contiguous (rows, t, 16) and (rows, n, 16) operands.  Raises
+    for a t the kernel is not built for and for n >= t."""
+    t, n = spec.t, len(inputs)
+    if t != KERNEL_T:
+        raise ValueError(f"poseidon_perm: K10 is built for t = {KERNEL_T}, not t = {t}")
+    if n >= t:
+        raise ValueError(f"poseidon_perm: {n} inputs, at most t - 1 = {t - 1} a permutation")
+    check_limbs("poseidon_perm", state, *inputs)
+    if state.dim() < 2 or state.shape[-2] != t:
+        raise ValueError(f"poseidon_perm: expected a (..., {t}, {NLIMB}) state, got {tuple(state.shape)}")
+    batch = torch.broadcast_shapes(state.shape[:-2], *(x.shape[:-1] for x in inputs))
+    rows = math.prod(batch)
+    st = _aligned(state.expand(*batch, t, NLIMB).reshape(rows, t, NLIMB))
+    ins = _aligned(torch.stack([x.expand(*batch, NLIMB) for x in inputs], -2).reshape(rows, n, NLIMB)) if n else None
+    table = _tensors(spec, state.device)["table"]
+    out = torch.empty(rows, t, NLIMB, dtype=torch.int64, device=state.device)
+    with torch.cuda.device(state.device):
+        code = _build.library().svtpu_poseidon_perm(
+            st.data_ptr(), None if ins is None else ins.data_ptr(), n, table.data_ptr(), table.shape[0],
+            out.data_ptr(), rows, t, spec.r_f, spec.r_p, field_arg(FR), stream_of(state))
+    _build.check(code, "poseidon_perm")
+    if rows:
+        poseidon_perm.launches += 1
+    return out.reshape(*batch, t, NLIMB)
+
+
+poseidon_perm.launches = 0
+
+
+def permutation(spec, state, inputs):
+    """The sparse-form permutation: K10 (``poseidon_perm``, one launch) when
+    the state and the inputs lie on one CUDA device, ``permutation_plain``
+    when they lie on the CPU; raises for mixed devices.  Same limbs either
+    way.  ``TorchPoseidonSponge.squeeze`` calls it once per permutation, by
+    this module's attribute."""
+    if use_kernel(state, *inputs):
+        return poseidon_perm(spec, state, inputs)
+    return permutation_plain(spec, state, inputs)
 
 
 class TorchPoseidonSponge:

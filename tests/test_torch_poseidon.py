@@ -79,6 +79,120 @@ def test_constant_tensors_match_jax():
         np.testing.assert_array_equal(opt[key], np.asarray(value).astype(np.int64), err_msg=key)
 
 
+K10_GROUP = 8  # csrc/poseidon.cu PERM_GROUP: lanes per row
+
+
+def k10_model(table, t, r_f, r_p, state, inputs):
+    """K10's schedule (csrc/poseidon.cu) on python ints: the flat table read
+    by the kernel's own index arithmetic, one row on a group of 8 lanes,
+    lane j < t holding word j and lanes t.. repeating word 0; a shuffle is a
+    read of another lane's value."""
+    r = bn254.R
+    half = r_f // 2
+    mds = (half + 1) * t
+    pre = mds + t * t
+    partial = pre + t * t
+    end = partial + 2 * t * r_p
+    assert len(table) == end + half * t
+    words = [lane if lane < t else 0 for lane in range(K10_GROUP)]
+    w = []
+    for j in words:  # absorb: round-0 constant, input j - 1, the padding one after the last input
+        v = (state[j] + table[j]) % r
+        if 1 <= j <= len(inputs):
+            v = (v + inputs[j - 1]) % r
+        if j == len(inputs) + 1:
+            v = (v + 1) % r
+        w.append(v)
+    for rnd in range(r_f + r_p):
+        full = rnd < half or rnd >= half + r_p
+        c = (rnd + 1) * t if rnd < half else end + (rnd - half - r_p) * t
+        q = partial + 2 * t * (rnd - half)
+        s = [(pow(w[lane] if full else w[0], 5, r) + table[c + j if full else q]) % r for lane, j in enumerate(words)]
+        if full:
+            row = pre if rnd == half - 1 else mds
+            w = [sum(s[k] * table[row + j * t + k] for k in range(t)) % r for j in words]
+        else:
+            prod = [(s[lane] if j == 0 else w[lane]) * table[q + 1 + j] % r for lane, j in enumerate(words)]
+            nxt = [(table[q + t + j] * s[lane] + w[lane]) % r for lane, j in enumerate(words)]
+            w0 = sum(prod[:t]) % r
+            w = [w0 if j == 0 else nxt[lane] for lane, j in enumerate(words)]
+    assert w[t:] == [w[0]] * (K10_GROUP - t)  # the spare lanes kept word 0
+    return w[:t]
+
+
+@pytest.mark.parametrize("n_inputs", [0, 1, 2, 3, 4])
+def test_k10_table_and_round_order_match_oracle_and_plain(n_inputs):
+    """K10's flat constant table walked in the kernel's order and lane roles
+    (absorb with the padding one, start and boundary rounds, each partial
+    round's constant, row and column at 2 t elements a round, the zero last
+    row) equals the JAX package's oracle and the plain permutation, limb for
+    limb, for 0-4 inputs."""
+    spec = PPO.default_spec()
+    flat = P.flat_table(spec)
+    assert flat.shape == (695, 16) and flat.dtype == np.int64
+    assert not flat[-spec.t:].any()  # the last end row: the constant-free final round
+    table = [int(v) for v in F.FR.decode(flat)]
+    rng = np.random.default_rng(90 + n_inputs)
+    states = [rand_fr(rng, spec.t) for _ in range(2)]
+    inputs = [rand_fr(rng, n_inputs) for _ in range(2)]
+    plain = P.permutation_plain(spec, torch.stack([port_fr(row) for row in states]),
+                                [port_fr([ins[k] for ins in inputs]) for k in range(n_inputs)])
+    for b in range(2):
+        got = k10_model(table, spec.t, spec.r_f, spec.r_p, states[b], inputs[b])
+        assert got == JPO.permutation(JPO.default_spec(), states[b], inputs[b])
+        np.testing.assert_array_equal(plain[b].numpy(), F.FR.encode(got).astype(np.int64))
+
+
+def test_sponge_calls_the_module_permutation_once_per_permutation(monkeypatch):
+    """The sponge reaches the permutation through ``ops.poseidon.permutation``
+    (the attribute the benchmark's ``poseidon.host_share`` wraps), once per
+    permutation: two calls for a squeeze after exactly one rate (the extra
+    empty one), one below it; the outputs are unchanged by the wrapper."""
+    spec = PPO.default_spec()
+    rng = np.random.default_rng(5)
+    words = [port_fr(rand_fr(rng, 2)) for _ in range(spec.rate + spec.rate - 1)]
+    want = []
+    for chunk in (words[:spec.rate], words[spec.rate:]):
+        sponge = P.TorchPoseidonSponge(spec, (2,), "cpu")
+        sponge.update(chunk)
+        want.append(sponge.squeeze())
+    calls = []
+    plain = P.permutation
+
+    def counted(*args):
+        calls.append(len(args[2]))
+        return plain(*args)
+
+    monkeypatch.setattr(P, "permutation", counted)
+    for chunk, w, counts in ((words[:spec.rate], want[0], [spec.rate, 0]), (words[spec.rate:], want[1], [spec.rate - 1])):
+        calls.clear()
+        sponge = P.TorchPoseidonSponge(spec, (2,), "cpu")
+        sponge.update(chunk)
+        assert torch.equal(sponge.squeeze(), w)
+        assert calls == counts
+
+
+def test_permutation_routes_cpu_to_plain_and_validates():
+    """CPU tensors take ``permutation_plain`` (no K10 launch); mixed devices
+    raise as ``config.use_kernel`` does; K10 refuses a width it is not built
+    for and a full-width absorb before touching the card."""
+    spec = PPO.default_spec()
+    rng = np.random.default_rng(3)
+    state = port_fr(rand_fr(rng, spec.t))
+    inputs = [port_fr(rand_fr(rng, 1))[0]]
+    launches = P.poseidon_perm.launches
+    assert torch.equal(P.permutation(spec, state, inputs), P.permutation_plain(spec, state, inputs))
+    assert P.poseidon_perm.launches == launches
+    with pytest.raises(ValueError, match="one CUDA device or all on the CPU"):
+        P.permutation(spec, state.to("meta"), inputs)
+    narrow = PPO.PoseidonSpec(3, 2, spec.r_f, spec.r_p, [], [])
+    with pytest.raises(ValueError, match="built for t"):
+        P.poseidon_perm(narrow, state[:3], [])
+    with pytest.raises(ValueError, match="at most t - 1"):
+        P.poseidon_perm(spec, state, [inputs[0]] * spec.t)
+    assert P.poseidon_perm.launches == launches
+
+
 def test_sponge_matches_jax_and_oracle_across_the_exact_rate():
     """Squeezes after exactly one rate of input (one extra empty
     permutation), after nothing (one empty permutation), and after 5 and 9
