@@ -35,6 +35,8 @@ HEAVY = (
     ("tests/test_msm.py::test_msm_serial_straddling_window",),
     ("tests/test_pairing_jax.py::test_final_exp_tape_vm_vs_oracle",),
     ("tests/test_fibonacci_circuit.py::test_fibonacci_jax",),
+    tuple(f"tests/test_torch_aggregation_distinct.py::test_port_matches_the_file_answers[{row}]"
+          for row in ("good.0", "good.1", "out_of_range.2", "limb_flip.3", "bad_inner", "probe.4")),
     ("tests/test_msm_fused.py::test_msm_batched_fused_bit_exact[2-3]",),
     ("tests/test_msm.py::test_bucket_totals_transposed_matches",),
 )
