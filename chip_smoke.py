@@ -45,12 +45,18 @@ of both its accumulators) and config 4's aggregation fold:
    proof's chain; K10 (the Poseidon permutation, one launch) at (1820, 5)
    and (1, 5) rows and batch shape () with 0-4 inputs, expanded (stride-0)
    and broadcast operands, against the python-int oracle on three rows, its
-   device time per launch and one row's launch less an empty one;
+   device time per launch and one row's launch less an empty one; K11 (the
+   Keccak-256 sponge, one launch) at 1820 rows of each of the Keccak verify's
+   7 hash lengths and at 0, 135, 136 and 137 bytes, on expanded and rank-2
+   inputs, against the python-int oracle on three rows a length, its device
+   time per launch at each verify length and one row's launch less an empty
+   one;
 4. slice: 1820 proofs (4 unique ones tiled, 2 rows with a corrupted
    commitment, 1 row with a wrong instance) from the data-file fixture;
    accumulators equal the native verifier's, ``ok`` False exactly on the
    corrupted rows, K1-K4 and ``mont_pow`` launched by the run (at most 230
-   K1 launches, 6 K2 and 8 K3 launches, no K10), and the host pairing oracle decides a good and the
+   K1 launches, 6 K2 and 8 K3 launches, 7 K11 launches (one per hash), no
+   K10), and the host pairing oracle decides a good and the
    wrong-instance accumulator; warm time, proofs/s, peak memory, and a
    torch.profiler breakdown of one warm verify;
 5. SHPLONK through the same code at 64 proofs;
@@ -70,7 +76,7 @@ of both its accumulators) and config 4's aggregation fold:
    compressed point with x >= p in one row, a non-residue x in another, a
    wrong instance in a third); accumulators equal the native verifier's,
    ``ok`` False exactly on the two corrupted rows, K1-K4 launched, one K10
-   launch per permutation (14) and fewer than 400 K1 launches; warm time,
+   launch per permutation (14), fewer than 400 K1 launches and no K11; warm time,
    proofs/s, peak memory, K1 launches, and a profile with the share of the
    Poseidon permutations and point reads in device time and host ops;
 9. aggregation: ``entry.aggregation_entry`` (the k=20 outer snark at B=8,
@@ -156,11 +162,12 @@ KERNELS = {  # name -> (source, TPU kernel replaced)
     "miller_loop": ("snark_verifier_tpu_torch/csrc/tower.cu", "snark_verifier_tpu/ops/tower_pallas.py:97"),
     "final_exp": ("snark_verifier_tpu_torch/csrc/tower.cu", "snark_verifier_tpu/ops/tower_pallas.py:97"),
     "poseidon_perm": ("snark_verifier_tpu_torch/csrc/poseidon.cu", "none (XLA: snark_verifier_tpu/ops/poseidon.py:168)"),
+    "keccak256": ("snark_verifier_tpu_torch/csrc/keccak.cu", "none (XLA: snark_verifier_tpu/ops/keccak.py:118)"),
 }
 PAIRING_KERNELS = ("miller_loop", "final_exp")  # K7's kernels on the pairing path
-SLICE_KERNELS = ("mont_mul", "mont_pow", "g1_add", "g1_double", "msm_scan")
+SLICE_KERNELS = ("mont_mul", "mont_pow", "g1_add", "g1_double", "msm_scan", "keccak256")  # the Keccak-transcript verify
 DECIDE_KERNELS = ("mont_mul", "mont_pow", "g1_add", "g1_add_select", "horner_combine", *PAIRING_KERNELS)
-POSEIDON_KERNELS = (*SLICE_KERNELS, "poseidon_perm")  # the Poseidon-transcript verify
+POSEIDON_KERNELS = ("mont_mul", "mont_pow", "g1_add", "g1_double", "msm_scan", "poseidon_perm")  # the Poseidon-transcript verify
 AGG_MEGA_KERNELS = ("mont_mul", "mont_pow", "g1_add", "g1_double", "msm_scan", "poseidon_perm",
                     *PAIRING_KERNELS)  # outer snark, MEGA on
 AGG_WINDOWED_KERNELS = ("mont_mul", "mont_pow", "g1_add", "g1_double", "msm_window", "msm_horner", "poseidon_perm",
@@ -178,6 +185,12 @@ DECIDE_MAX_K1, DECIDE_MAX_POW, VERIFY_MAX_K1 = 16, 2, 230  # launch ceilings on 
 # 14 a batch, and a ceiling on its K1 launches (4856 before K10)
 POSEIDON_PERMS, POSEIDON_MAX_K1 = 14, 400
 POSEIDON_LEVELS = 4  # dependent products a round on K10's chain: the S-box's 3, then the matrix
+# K11 on the Keccak verify: one launch per hash of the transcript, of these
+# lengths in order; the padding's edges besides; the 32-bit integer ops of
+# one keccak-f round on 64-bit lanes (theta 110, rho 48, chi 150, iota 2)
+KECCAK_VERIFY_LENGTHS = (256, 33, 33, 96, 224, 448, 160)
+KECCAK_EDGE_LENGTHS = (0, 135, 136, 137)
+KECCAK_OPS_PER_ROUND = 310
 # K2/K5: the widths of their launches on the main path (the decide's bucket
 # tree 32768 ... 32 pairs, flushes 8192, tree sums 4096 ... 32, suffix scans
 # 8192 ... 32; the verify's table build 32760), and their launch counts
@@ -722,6 +735,85 @@ def phase_kernels_poseidon(torch, dev, rng, results_field):
     return res
 
 
+def host_aten_ops(torch, fn) -> int:
+    """Host aten ops of one call of ``fn``, by torch.profiler's CPU events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.profiler.kineto_results.events() if e.name().startswith("aten::"))
+
+
+def keccak_bound(rows: int, length: int) -> dict:
+    """The least time the card could take for K11 on (rows, length): the
+    larger of the bytes (8 per input byte, 256 per output row) over HBM
+    bandwidth and the 32-bit integer ops of its rounds over the INT32 rate."""
+    t_bytes = (rows * length * 8 + rows * 32 * 8) / HBM_BYTES_PER_S * 1e3
+    t_ops = rows * (length // 136 + 1) * 24 * KECCAK_OPS_PER_ROUND / INT32_MULS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
+
+
+def phase_kernels_keccak(torch, dev, rng):
+    """K11 ``keccak256_cuda`` against ``keccak256_plain``, bit for bit, at
+    1820 rows of each of the Keccak verify's lengths and the padding's edges
+    (0, 135, 136, 137 bytes), on an expanded (stride-0) input, a batch of
+    rank 2 and batch shape (); three rows of each length against the
+    python-int oracle (util/keccak.py); its call and device ms per launch at
+    each verify length and their sum over the verify's 7 hashes, one row's
+    launch less an empty launch (its critical path: one thread's chain),
+    beside its bound; the plain version's time at the longest hash; the host
+    aten ops of the verify's 7 hashes, plain and K11 (torch.profiler)."""
+    from snark_verifier_tpu_torch.ops import keccak as K
+    from snark_verifier_tpu_torch.util.keccak import keccak256 as oracle
+
+    gen = torch.Generator().manual_seed(rng.randrange(1 << 31))
+    inputs = {}
+    for length in sorted(set(KECCAK_VERIFY_LENGTHS + KECCAK_EDGE_LENGTHS)):
+        data = torch.randint(0, 256, (B, length), generator=gen).to(dev)
+        got, want = K.keccak256_cuda(data, length), K.keccak256_plain(data, length)
+        torch.cuda.synchronize()
+        require(got.shape == (B, 32) and torch.equal(got, want), f"keccak256 length {length}: != plain")
+        for r in (0, B // 2, B - 1):
+            require(bytes(got[r].tolist()) == oracle(bytes(data[r].tolist())),
+                    f"keccak256 length {length} row {r}: != python-int oracle")
+        inputs[length] = data
+    longest = max(KECCAK_VERIFY_LENGTHS)
+    data = inputs[longest]
+    want = K.keccak256_plain(data, longest)
+    require(torch.equal(K.keccak256_cuda(data[0].expand(B, longest), longest), want[0].expand(B, 32)),
+            "keccak256 expanded input: != plain")
+    require(torch.equal(K.keccak256_cuda(data.reshape(2, B // 2, longest), longest), want.reshape(2, B // 2, 32)),
+            "keccak256 rank-2 batch: != plain")
+    require(torch.equal(K.keccak256_cuda(data[0], longest), want[0]), "keccak256 batch (): != plain")
+    log(f"kernel keccak256: equal to plain at {B} rows of {len(inputs)} lengths {sorted(inputs)}, on an expanded "
+        f"input, a rank-2 batch and batch (), and to the python-int oracle on 3 rows of each length")
+
+    by_length = {}
+    for length in sorted(set(KECCAK_VERIFY_LENGTHS)):
+        d = inputs[length]
+        by_length[length] = {"ms": cuda_ms(torch, lambda: K.keccak256_cuda(d, length)),
+                             "device_ms": device_ms(torch, lambda: K.keccak256_cuda(d, length), reps=20),
+                             **keccak_bound(B, length)}
+    verify_ms = sum(by_length[n]["device_ms"] for n in KECCAK_VERIFY_LENGTHS)
+    one = one_item_chain(torch, lambda: K.keccak256_cuda(data[:1], longest), reps=20)
+    _, plain_ms = timed_once(torch, lambda: K.keccak256_plain(data, longest))
+    host_ops = {name: host_aten_ops(torch, lambda: [fn(inputs[n], n) for n in KECCAK_VERIFY_LENGTHS])
+                for name, fn in (("plain", K.keccak256_plain), ("k11", K.keccak256_cuda))}
+    top = by_length[longest]
+    res = {"max_abs_err": 0.0, "ms": top["ms"], "plain_ms": plain_ms, "shape": {"rows": B, "length": longest},
+           **keccak_bound(B, longest), "device_ms": top["device_ms"], "one_row": one,
+           "critical_path_ms": one["chain_ms"], "by_length": by_length, "verify_device_ms": verify_ms,
+           "verify_host_aten_ops": host_ops}
+    lengths = ", ".join(f"{n} B: call {r['ms']:.4f}, device {r['device_ms']:.6f}, bound {r['bound_ms']:.6f} "
+                        f"({r['bound_by']})" for n, r in by_length.items())
+    log(f"kernel keccak256 ({B} rows; ms): {lengths}; the verify's 7 hashes {verify_ms:.6f} ms of device time; one "
+        f"row's launch less an empty one {one['chain_ms']:.6f} ms at {longest} B; plain {plain_ms:.4f} ms at "
+        f"{longest} B; host aten ops of the 7 hashes: plain {host_ops['plain']}, K11 {host_ops['k11']}")
+    return res
+
+
 def scan_sweep(torch, table, digits, want):
     """K4's one launch parameter, proofs per block (1-8), at each batch of
     ``SCAN_SWEEP_BATCHES`` (the first b proofs of config 1's MSM): every
@@ -1113,6 +1205,7 @@ def fold_summary(folds: dict) -> str:
 def wrappers():
     from snark_verifier_tpu_torch.ops import curve_cuda as CK
     from snark_verifier_tpu_torch.ops import field_cuda as FK
+    from snark_verifier_tpu_torch.ops import keccak as K
     from snark_verifier_tpu_torch.ops import msm_cuda as MK
     from snark_verifier_tpu_torch.ops import pairing as PAIR
     from snark_verifier_tpu_torch.ops import poseidon as P
@@ -1122,7 +1215,7 @@ def wrappers():
             "msm_scan": MK.msm_scan, "g1_add_select": CK.g1_add_select, "horner_combine": MK.horner_combine,
             "fq12_mul": TC.fq12_mul_flat,
             "msm_window": MK.msm_window, "msm_horner": MK.msm_horner, "miller_loop": PAIR.miller_loop_pair,
-            "final_exp": PAIR.final_exponentiation, "poseidon_perm": P.poseidon_perm}
+            "final_exp": PAIR.final_exponentiation, "poseidon_perm": P.poseidon_perm, "keccak256": K.keccak256_cuda}
 
 
 def count_launches(torch, run, required, absent=()):
@@ -1229,7 +1322,7 @@ def phase_poseidon(torch, dev, card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    out, launches = count_launches(torch, lambda: fn(*args), POSEIDON_KERNELS)
+    out, launches = count_launches(torch, lambda: fn(*args), POSEIDON_KERNELS, absent=("keccak256",))
     first_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev)
     log(f"poseidon first run: {first_s:.3f} s; launches {launches}")
@@ -1458,6 +1551,8 @@ def phase_slice(torch, dev, card):
             f"slice: K2 launches {launches['g1_add']}, not {VERIFY_ADD_LAUNCHES['g1_add']}")
     require(launches["g1_double"] == VERIFY_DBL_LAUNCHES,
             f"slice: K3 launches {launches['g1_double']}, not {VERIFY_DBL_LAUNCHES}")
+    require(launches["keccak256"] == len(KECCAK_VERIFY_LENGTHS),
+            f"slice: K11 launches {launches['keccak256']}, not one per hash ({len(KECCAK_VERIFY_LENGTHS)})")
     ADD_PATH_WIDTHS["verify"] = widths
 
     for key in ("lhs_x", "lhs_y", "rhs_x", "rhs_y"):
@@ -2166,6 +2261,7 @@ def main() -> int:
     for name, res in phase_kernels_add(torch, dev, rng, results).items():
         results[name]["lanes"] = res
     results["poseidon_perm"] = phase_kernels_poseidon(torch, dev, rng, results)
+    results["keccak256"] = phase_kernels_keccak(torch, dev, rng)
     done("kernels")
     slice_launches, slice_per_launch, slice_least, out, wrong_row, verify_s = phase_slice(torch, dev, smi)
     phase_shplonk(torch, dev)
@@ -2227,7 +2323,7 @@ def main() -> int:
     paths = {"verify": slice_launches, "decide": decide_launches, "poseidon_verify": poseidon_launches,
              "outer_snark_mega_off": agg_launches}
     for row in report:
-        if row["name"] in ("mont_mul", "mont_pow", "poseidon_perm"):
+        if row["name"] in ("mont_mul", "mont_pow", "poseidon_perm", "keccak256"):
             row["launches_by_path"] = {k: v[row["name"]] for k, v in paths.items()}
         row["ptxas"] = {k: v for k, v in ptxas.items() if k.split(" ")[0] == row["name"]}
         if row["name"] in ("g1_add", "g1_add_select"):

@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-KERNEL_SOURCES = ("field.cu", "curve.cu", "msm.cu", "tower.cu", "poseidon.cu")
+KERNEL_SOURCES = ("field.cu", "curve.cu", "msm.cu", "tower.cu", "poseidon.cu", "keccak.cu")
 HEADERS = ("bn254.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -47,6 +47,7 @@ SIGNATURES = {
     "svtpu_msm_window": [_P, _P, _P, _P, _P, _I64, _INT, _P, _INT, _P],
     "svtpu_msm_horner": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P, _INT, _P],
     "svtpu_poseidon_perm": [_P, _P, _INT, _P, _I64, _P, _I64, _INT, _INT, _INT, _P, _P],
+    "svtpu_keccak256": [_P, _I64, _P, _I64, _P],
 }
 
 

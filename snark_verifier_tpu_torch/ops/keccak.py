@@ -1,19 +1,26 @@
-"""Batched Keccak-256 on int64 tensors (plain PyTorch).
+"""Batched Keccak-256 on int64 byte tensors.
 
 Counterpart of ``snark_verifier_tpu/ops/keccak.py``, which is XLA and not a
-Pallas kernel.  A 64-bit lane is one int64 (two's complement bits), so the
-state is ``(..., 25)``; rotations are shifts with a mask that undoes the sign
-fill of the arithmetic right shift.  Message lengths are fixed by the
-protocol, so padding is a constant tail.
+Pallas kernel.  ``keccak256`` runs kernel K11 (``csrc/keccak.cu``) on CUDA
+tensors: the padding, every block's absorb and keccak-f[1600], and the
+squeeze of every row in one launch.  On CPU tensors it runs
+``keccak256_plain``, plain PyTorch: a 64-bit lane is one int64 (two's
+complement bits), so the state is ``(..., 25)``; rotations are shifts with a
+mask that undoes the sign fill of the arithmetic right shift.  Message
+lengths are fixed by the protocol, so padding is a constant tail.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
 
+from snark_verifier_tpu_torch import _build
+from snark_verifier_tpu_torch.config import use_kernel
+from snark_verifier_tpu_torch.ops.field_cuda import stream_of
 from snark_verifier_tpu_torch.util.keccak import _RHO, _ROUND_CONSTANTS
 
 RATE = 136  # bytes
@@ -88,11 +95,9 @@ def _bytes_to_lanes(block):
     return (b << shifts).sum(-1)  # disjoint bits: the sum is an OR (wraps into the sign bit)
 
 
-def keccak256(data, length: int):
-    """Keccak-256 of (..., length) byte tensors (int64 values 0..255).
-    Returns (..., 32) digest bytes."""
-    if data.shape[-1] != length:
-        raise ValueError(f"keccak256: last axis {data.shape[-1]} != length {length}")
+def keccak256_plain(data, length: int):
+    """Keccak-256 of (..., length) byte tensors (int64 values 0..255) in
+    plain PyTorch, K11's plain version.  Returns (..., 32) digest bytes."""
     batch = data.shape[:-1]
     pad_len = RATE - (length % RATE)
     pad = np.zeros(pad_len, np.int64)
@@ -108,3 +113,38 @@ def keccak256(data, length: int):
     shifts = torch.arange(0, 64, 8, dtype=torch.int64, device=data.device)
     out = (state[..., :4].unsqueeze(-1) >> shifts) & 0xFF  # (..., 4, 8)
     return out.reshape(*batch, 32)
+
+
+def keccak256_cuda(data, length: int):
+    """K11: Keccak-256 of every row in one launch, on a CUDA tensor of
+    (..., length) int64 byte values (0..255; an expanded or strided tensor is
+    copied to contiguous rows).  Returns (..., 32) int64 digest bytes.  A
+    contiguous input costs the host one aten op, the output's allocation."""
+    if data.dtype != torch.int64:
+        raise ValueError(f"keccak256: expected int64 byte values, got {data.dtype}")
+    batch = data.shape[:-1]
+    rows = math.prod(batch)
+    msg = data.contiguous()  # (batch..., length) contiguous is (rows, length) row-major
+    out = torch.empty(*batch, 32, dtype=torch.int64, device=data.device)
+    with torch.cuda.device(data.device):
+        code = _build.library().svtpu_keccak256(msg.data_ptr(), length, out.data_ptr(), rows, stream_of(data))
+    _build.check(code, "keccak256")
+    if rows:
+        keccak256_cuda.launches += 1
+    return out
+
+
+keccak256_cuda.launches = 0
+
+
+def keccak256(data, length: int):
+    """Keccak-256 of (..., length) byte tensors (int64 values 0..255).
+    Returns (..., 32) digest bytes: K11 (``keccak256_cuda``, one launch) on a
+    CUDA tensor, ``keccak256_plain`` on a CPU tensor; raises for any other
+    device.  Same bytes either way.  ``TorchEvmTranscript`` calls it once per
+    squeeze, by this module's attribute."""
+    if data.shape[-1] != length:
+        raise ValueError(f"keccak256: last axis {data.shape[-1]} != length {length}")
+    if use_kernel(data):
+        return keccak256_cuda(data, length)
+    return keccak256_plain(data, length)

@@ -164,11 +164,12 @@ def test_build_command_targets_the_ignored_build_dir():
         assert [Path(c).name for c in cmd if c.endswith(".cu")] == [source]
     link = _build.link_command(out, objs)
     assert "-shared" in link and link[link.index("-o") + 1] == str(out) and link[-len(objs):] == list(map(str, objs))
-    assert _build.KERNEL_SOURCES == ("field.cu", "curve.cu", "msm.cu", "tower.cu", "poseidon.cu")
+    assert _build.KERNEL_SOURCES == ("field.cu", "curve.cu", "msm.cu", "tower.cu", "poseidon.cu", "keccak.cu")
     assert all((_build.CSRC_DIR / s).exists() for s in _build.KERNEL_SOURCES + _build.HEADERS)
     assert set(_build.SIGNATURES) >= {
         "svtpu_g1_double", "svtpu_horner_combine", "svtpu_fq12_mul", "svtpu_msm_window", "svtpu_msm_horner",
         "svtpu_miller_loop", "svtpu_final_exp", "svtpu_mont_pow", "svtpu_g1_add_lanes", "svtpu_poseidon_perm",
+        "svtpu_keccak256",
     }
     # every C entry of the sources is bound, and nothing else
     entries = {m for s in _build.KERNEL_SOURCES
