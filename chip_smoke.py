@@ -80,15 +80,14 @@ of both its accumulators) and config 4's aggregation fold:
    proofs/s, peak memory, K1 launches, and a profile with the share of the
    Poseidon permutations and point reads in device time and host ops;
 9. aggregation: ``entry.aggregation_entry`` (the k=20 outer snark at B=8,
-   both accumulators decided per proof) with ``MEGA`` on (K4) and off
-   (K8/K9): both accumulators equal the native verifier's, ``ok`` all True,
-   a mutated proof byte and a flipped instance limb clear it, the two runs
-   agree, 8 K3 launches in each and 128 of K8 and of K9 with ``MEGA`` off,
-   K10 launched;
-   warm times, and a profile of the ``MEGA``-off run; then K8 and K9
-   against their plain versions, and K4 against its plain version and
-   K8/K9, bit for bit, on the inputs of that run's first two-kernel MSM (the
-   kernels line reports K8/K9's times and bounds at this shape);
+   both accumulators decided per proof): both accumulators equal the native
+   verifier's, ``ok`` all True, a mutated proof byte and a flipped instance
+   limb clear it, 8 K3 launches, one K4 launch per small MSM and none of K8
+   or K9, K10 launched; warm times and a profile; then K8 and K9 against
+   their plain versions, and K4 against its plain version and K8/K9
+   (``msm_windowed``), bit for bit, on K4's operands of that run's first
+   small MSM (the kernels line reports K8/K9's times and bounds at this
+   shape);
 10. config 4: the port's ``aggregate_native`` folds the four Poseidon
    snarks on the host, the card decides the fold (True) and decodes its 16
    instance limbs back to it;
@@ -139,14 +138,15 @@ import subprocess
 import sys
 import time
 
+from benchmark.harness.roofline import (CLOCK_HZ, FE_BYTES, HBM_BYTES_PER_S, INT32_MULS_PER_S, MONT_PER, WINDOW_DBLS,
+                                        bound_s, scan_mont_products)
+
 SEED = 20261016
 B = 1820  # proofs in the main path's batch
 N_TERMS = 18  # MSM terms per proof at k = 8
 SHPLONK_BATCH = 64
 DECIDE_PROOFS = 8  # build_verifier(decide_dk=...) batch
 MSM_POOL = 64  # distinct points of the large MSM, tiled
-WINDOW_DBLS = 4  # doublings per window of K4 (4-bit windows)
-NWINDOWS = 64  # signed 4-bit windows of a scalar (K4's Horner steps)
 MSM_CASES = ((16, 8, False), (20, 11, True))  # large MSM: (log2 points, window, signed)
 KERNELS = {  # name -> (source, TPU kernel replaced)
     "mont_mul": ("snark_verifier_tpu_torch/csrc/field.cu", "snark_verifier_tpu/ops/field_pallas.py:270"),
@@ -168,10 +168,8 @@ PAIRING_KERNELS = ("miller_loop", "final_exp")  # K7's kernels on the pairing pa
 SLICE_KERNELS = ("mont_mul", "mont_pow", "g1_add", "g1_double", "msm_scan", "keccak256")  # the Keccak-transcript verify
 DECIDE_KERNELS = ("mont_mul", "mont_pow", "g1_add", "g1_add_select", "horner_combine", *PAIRING_KERNELS)
 POSEIDON_KERNELS = ("mont_mul", "mont_pow", "g1_add", "g1_double", "msm_scan", "poseidon_perm")  # the Poseidon-transcript verify
-AGG_MEGA_KERNELS = ("mont_mul", "mont_pow", "g1_add", "g1_double", "msm_scan", "poseidon_perm",
-                    *PAIRING_KERNELS)  # outer snark, MEGA on
-AGG_WINDOWED_KERNELS = ("mont_mul", "mont_pow", "g1_add", "g1_double", "msm_window", "msm_horner", "poseidon_perm",
-                        *PAIRING_KERNELS)  # MEGA off
+AGG_KERNELS = ("mont_mul", "mont_pow", "g1_add", "g1_double", "msm_scan", "poseidon_perm",
+               *PAIRING_KERNELS)  # the outer snark
 PAIRING_BATCHES = (1, 8)  # K7's pairing kernels: the decide's batch and the outer snark's
 SCAN_SWEEP_BATCHES = (8, 66, 132, 264, 400, 528, 800, 1056, 1320, 1820)  # K4's geometry sweep
 HORNER_SHAPES = ((32, 8), (24, 11))  # K6: (nwin, window) of the decide's MSM and of the 2^20 MSM (signed)
@@ -199,28 +197,16 @@ DECIDE_ADD_LAUNCHES = {"g1_add_select": 62, "g1_add": 34}
 VERIFY_ADD_LAUNCHES = {"g1_add": 6}
 # K3: the widths of its launches (the verify's table build 32760 = 1820 x 18,
 # the outer snark's 288 = 8 x 36) and two between; its launches per verify
-# and per outer snark (4 per small MSM's table), and K8's and K9's on the
-# outer snark with MEGA off (64 each per small MSM)
+# and per outer snark (4 per small MSM's table)
 DBL_WIDTHS = (32760, 8192, 288, 32)
 VERIFY_DBL_LAUNCHES = AGG_DBL_LAUNCHES = 8
-AGG_WINDOW_LAUNCHES = 128
 WINDOW_FIRST_DIGITS = (-1, -8, 0, 8, -3, 5, -5, 1)  # K8's forced first digits, proof b takes entry b % 8
 BIG_EXPONENTS = ((1 << 256) + 7, (1 << 300) + 5)  # mont_pow above 2^256: a few launches over 256-bit pieces
 AGG_BATCH = 8  # the outer snark tiled, as tools/verify_aggregation_onchip.py
 FLIPPED_LIMB = 3  # instance limb flipped in the aggregation phase (old accumulator's lhs x, top limb)
 
-# The card's peak rates for the bound (NVIDIA H100 SXM data sheet and
-# Hopper white paper): HBM3 bandwidth, and 32-bit integer multiply-adds:
-# 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock.
-HBM_BYTES_PER_S = 3.35e12
-CLOCK_HZ = 1.98e9
-INT32_MULS_PER_S = 132 * 64 * CLOCK_HZ
-# 32-bit multiply instructions per Montgomery product (CIOS on 8 words):
-# 64 a*b and 64 m*p products, each a 32 x 32 -> 64 bit multiply (lo and hi
-# halves: 2 instructions), and 8 m = t0 * n0 (low half only).
-MULS_PER_MONT = 2 * (64 + 64) + 8
-FE_BYTES = 32  # one field element (or one scalar's 64 signed 4-bit digits) as the function needs it
-MONT_PER = {"add": 12, "double": 8, "fq12": 54}  # Montgomery products per operation
+# The card's peak rates, the work per operation and the bound are the
+# benchmark's (benchmark/harness/roofline.py).
 # Fq products of the pairing's tower operations at the least count of a
 # known schedule (the kernels run the dense 54-product Fq12 Karatsuba for all
 # of them; every value is reduced below p, so any correct schedule gives the
@@ -298,13 +284,11 @@ def max_abs_err(torch, got, want) -> float:
 
 
 def bound(nbytes: int, mont_products: int) -> dict:
-    """The least time the card could take: the larger of the bytes the
-    function must move (inputs read once, outputs written once) over HBM
-    bandwidth and its 32-bit multiply instructions over the INT32 rate."""
+    """``roofline.bound_s`` in milliseconds, and whether the bytes or the
+    multiplies set it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = mont_products * MULS_PER_MONT / INT32_MULS_PER_S * 1e3
-    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None}
+    ms = bound_s(nbytes, mont_products) * 1e3
+    return {"bound_ms": ms, "bound_by": "bytes" if t_bytes >= ms else "operations", "library_ms": None}
 
 
 def timed_once(torch, fn):
@@ -315,13 +299,6 @@ def timed_once(torch, fn):
     stop.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(stop)
-
-
-def scan_mont_products(n: int, nwin: int) -> int:
-    """Montgomery products one proof's K4 MSM needs: nwin (n - 1) complete
-    adds for the window sums, then (nwin - 1) x (4 doublings + 1 add) for
-    Horner (its first step, onto the identity, needs none)."""
-    return nwin * (n - 1) * MONT_PER["add"] + (nwin - 1) * (WINDOW_DBLS * MONT_PER["double"] + MONT_PER["add"])
 
 
 def pairing_mont_products() -> tuple[int, int]:
@@ -359,7 +336,7 @@ def phase_kernels(torch, dev, rng):
     """Each kernel against its plain version on the card, same inputs."""
     from snark_verifier_tpu_torch.entry import bn254  # the python-int oracle
     from snark_verifier_tpu_torch.ops import curve as C
-    from snark_verifier_tpu_torch.ops import curve_cuda as CK
+    from snark_verifier_tpu_torch.ops import msm as M
     from snark_verifier_tpu_torch.ops import msm_cuda as MK
     from snark_verifier_tpu_torch.ops.convert import ints_to_tensor
 
@@ -375,13 +352,13 @@ def phase_kernels(torch, dev, rng):
     ps[0], qs[1], qs[2], qs[3] = None, ps[1], bn254.g1_neg(ps[2]), None
     p = C.g1_from_affine_ints(ps, dev)
     q = C.g1_from_affine_ints(qs, dev)
-    r = CK.g1_add(p, q)  # projective sums (z != 1) as second-level inputs
+    r = C.g1_add(p, q)  # projective sums (z != 1) as second-level inputs
     torch.cuda.synchronize()
     checks = [
-        ("g1_add", CK.g1_add, CK.g1_add_plain, (p, q)),
-        ("g1_add", CK.g1_add, CK.g1_add_plain, (r, q)),
-        ("g1_double", CK.g1_double, CK.g1_double_plain, (p,)),
-        ("g1_double", CK.g1_double, CK.g1_double_plain, (r,)),
+        ("g1_add", C.g1_add, C.g1_add_plain, (p, q)),
+        ("g1_add", C.g1_add, C.g1_add_plain, (r, q)),
+        ("g1_double", C.g1_double, C.g1_double_plain, (p,)),
+        ("g1_double", C.g1_double, C.g1_double_plain, (r,)),
     ]
     errs = {"g1_add": [], "g1_double": []}
     for name, kern, plain, args in checks:
@@ -391,7 +368,7 @@ def phase_kernels(torch, dev, rng):
         errs[name].append(max_abs_err(torch, got, want))
     sums = C.g1_to_affine_ints(C.G1(*(c[:64] for c in r)))
     require(sums == [bn254.g1_add(x, y) for x, y in zip(ps[:64], qs[:64])], "g1_add: kernel != oracle")
-    dbl = C.g1_to_affine_ints(C.G1(*(c[:64] for c in CK.g1_double(p))))
+    dbl = C.g1_to_affine_ints(C.G1(*(c[:64] for c in C.g1_double(p))))
     require(dbl == [bn254.g1_double(x) for x in ps[:64]], "g1_double: kernel != oracle")
     for name, kern, plain, args in (checks[0], checks[2]):
         ms, plain_ms = cuda_ms(torch, lambda: kern(*args)), cuda_ms(torch, lambda: plain(*args))
@@ -404,9 +381,8 @@ def phase_kernels(torch, dev, rng):
     # K4 msm_scan at B = 1820, n = 18, all 64 windows, with zero and one scalars
     scal = [rng.randrange(bn254.R) for _ in range(n_pts)]
     scal[0], scal[N_TERMS + 1], scal[2 * N_TERMS] = 0, 1, bn254.R - 1
-    pts = C.G1(*(c.reshape(B, N_TERMS, 16).transpose(0, 1) for c in p))
-    table = MK.build_tables(pts)
-    digits = MK.signed_digits(ints_to_tensor(scal, dev).reshape(B, N_TERMS, 16))
+    table, digits = M.scan_inputs(C.G1(*(c.reshape(B, N_TERMS, 16) for c in p)),
+                                  ints_to_tensor(scal, dev).reshape(B, N_TERMS, 16))
     got = MK.msm_scan(table, digits)
     want, plain_ms = timed_once(torch, lambda: MK.msm_scan_plain(table, digits))  # ~17 s a call
     two = MK.msm_windowed(table, digits)
@@ -449,31 +425,30 @@ def phase_kernels_double(torch, p, r, results_field):
     among the first rows); then device ms per launch at each width, and the
     chain of one doubling (``one_item_chain``)."""
     from snark_verifier_tpu_torch.ops import curve as C
-    from snark_verifier_tpu_torch.ops import curve_cuda as CK
 
     for n in DBL_WIDTHS:
         for kind, pt in (("affine", p), ("projective", r)):
             cut = C.G1(*(c[:n] for c in pt))
             require(bool((cut.z == 0).all(-1).any()), f"g1_double n={n} {kind}: no identity (z = 0) among the inputs")
-            require(all(torch.equal(g, w) for g, w in zip(CK.g1_double(cut), CK.g1_double_plain(cut))),
+            require(all(torch.equal(g, w) for g, w in zip(C.g1_double(cut), C.g1_double_plain(cut))),
                     f"g1_double n={n} {kind}: != plain")
     torch.cuda.synchronize()
     log(f"kernel g1_double (lanes): equal to plain at widths {DBL_WIDTHS} on affine and projective points with "
-        f"identities among them, on {CK.DBL_GROUP} lanes")
+        f"identities among them, on {C.DBL_GROUP} lanes")
 
     latency = results_field["mont_pow"]["product_latency_ms"]
     out = {}
     for n in DBL_WIDTHS:
         cut = C.G1(*(c[:n] for c in r))
-        ms = device_ms(torch, lambda: CK.double_points(cut), reps=50)
+        ms = device_ms(torch, lambda: C.double_points(cut), reps=50)
         b = bound(6 * n * FE_BYTES, MONT_PER["double"] * n)
         out[n] = {"device_ms": ms, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
         log(f"kernel g1_double n={n}: device ms per launch {ms:.6f}; bound {b['bound_ms']:.6f} ms ({b['bound_by']})")
     one_p = C.G1(*(c[:1] for c in r))
-    chain = one_item_chain(torch, lambda: CK.double_points(one_p))
+    chain = one_item_chain(torch, lambda: C.double_points(one_p))
     log(f"kernel g1_double: one doubling's launch less an empty launch {chain} ms (device_ms, in turns); products "
         f"alone 2 x fmul_eo {2 * latency['fmul_eo']:.6f} ms")
-    return {"by_width": out, "group_lanes": CK.DBL_GROUP, "block": CK.DBL_BLOCK, "one_double": chain,
+    return {"by_width": out, "group_lanes": C.DBL_GROUP, "block": C.DBL_BLOCK, "one_double": chain,
             "critical_path_ms": chain["chain_ms"], "products_on_chain_ms": 2 * latency["fmul_eo"]}
 
 
@@ -516,7 +491,6 @@ def horner_cases(torch, acc, contrib, where: str) -> float:
     triple the 4 doublings give) and contrib = -16 acc (the sum is the
     identity).  Returns the largest |kernel - plain|."""
     from snark_verifier_tpu_torch.ops import curve as C
-    from snark_verifier_tpu_torch.ops import curve_cuda as CK
     from snark_verifier_tpu_torch.ops import field as F
     from snark_verifier_tpu_torch.ops import msm_cuda as MK
 
@@ -524,7 +498,7 @@ def horner_cases(torch, acc, contrib, where: str) -> float:
     ident = C.g1_identity((batch,), acc.x.device)
     sixteen = acc
     for _ in range(WINDOW_DBLS):
-        sixteen = CK.g1_double_plain(sixteen)
+        sixteen = C.g1_double_plain(sixteen)
     minus = C.G1(sixteen.x, F.neg(sixteen.y, F.FQ), sixteen.z)
     err = 0.0
     for case, a, c in (("projective", acc, contrib), ("from the identity", ident, contrib),
@@ -577,7 +551,6 @@ def phase_kernels_field(torch, dev, rng):
     p - 2 and (p + 1) / 4, with both Montgomery products, and the device time
     per product of each at batch 1 (the chain's latency)."""
     from snark_verifier_tpu_torch.ops import field as F
-    from snark_verifier_tpu_torch.ops import field_cuda as FK
 
     results = {}
     errs, times, operands = [], {}, {}
@@ -587,14 +560,14 @@ def phase_kernels_field(torch, dev, rng):
         b = [y for _ in edge for y in edge] + [rng.randrange(spec.modulus) for _ in range(B - 25)]
         ta = torch.as_tensor(spec.encode(a).astype("int64"), device=dev)
         tb = torch.as_tensor(spec.encode(b).astype("int64"), device=dev)
-        got, want = FK.mont_mul(ta, tb, spec), FK.mont_mul_plain(ta, tb, spec)
+        got, want = F.mont_mul(ta, tb, spec), F.mont_mul_plain(ta, tb, spec)
         torch.cuda.synchronize()
         require(torch.equal(got, want), f"mont_mul {spec.name}: kernel != plain")
         require(list(spec.decode(got)) == [x * y % spec.modulus for x, y in zip(a, b)],
                 f"mont_mul {spec.name}: kernel != python ints")
         errs.append(max_abs_err(torch, [got], [want]))
-        times[spec.name] = (cuda_ms(torch, lambda: FK.mont_mul(ta, tb, spec)),
-                            cuda_ms(torch, lambda: FK.mont_mul_plain(ta, tb, spec)))
+        times[spec.name] = (cuda_ms(torch, lambda: F.mont_mul(ta, tb, spec)),
+                            cuda_ms(torch, lambda: F.mont_mul_plain(ta, tb, spec)))
         operands[spec.name] = (a, ta, tb)
         log(f"kernel mont_mul {spec.name} ({B},16): equal to plain; kernel {times[spec.name][0]:.4f} ms, "
             f"plain {times[spec.name][1]:.4f} ms")
@@ -610,9 +583,9 @@ def phase_kernels_field(torch, dev, rng):
         for n in (B, 1):
             x, vals = ta[-n:].contiguous(), a[-n:]  # batch 1: a random value
             for e in exps(spec.modulus):
-                want = FK.mont_pow_plain(x, e, spec)
+                want = F.mont_pow_plain(x, e, spec)
                 for even_odd in (True, False):
-                    got = FK.mont_pow(x, e, spec, even_odd=even_odd)
+                    got = F.mont_pow(x, e, spec, even_odd=even_odd)
                     torch.cuda.synchronize()
                     require(torch.equal(got, want), f"mont_pow {spec.name} n={n} e={e} even_odd={even_odd}: != plain")
                 errs.append(max_abs_err(torch, [got], [want]))
@@ -623,16 +596,17 @@ def phase_kernels_field(torch, dev, rng):
         # an exponent of 2^256 and above: one launch per 256-bit piece of the same chain
         a, ta, _ = operands[spec.name]
         for e in BIG_EXPONENTS:
-            before = FK.mont_pow.launches
-            got = FK.mont_pow(ta, e, spec)
-            launched = FK.mont_pow.launches - before
+            before = F.mont_pow.launches
+            got = F.mont_pow(ta, e, spec)
+            launched = F.mont_pow.launches - before
             torch.cuda.synchronize()
-            require(torch.equal(got, FK.mont_pow_plain(ta, e, spec)), f"mont_pow {spec.name} e=2^{e.bit_length() - 1}+: != plain")
+            require(torch.equal(got, F.mont_pow_plain(ta, e, spec)),
+                    f"mont_pow {spec.name} e=2^{e.bit_length() - 1}+: != plain")
             require(list(spec.decode(got)) == [pow(v, e, spec.modulus) for v in a], f"mont_pow {spec.name}: != python ints")
-            require(launched == len(FK.exponent_pieces(e)) == 2, f"mont_pow above 2^256: {launched} launches, not 2")
-        before = FK.mont_pow.launches
-        FK.mont_pow(ta, (1 << 256) - 1, spec)
-        require(FK.mont_pow.launches - before == 1, "mont_pow below 2^256 must be one launch")
+            require(launched == len(F.exponent_pieces(e)) == 2, f"mont_pow above 2^256: {launched} launches, not 2")
+        before = F.mont_pow.launches
+        F.mont_pow(ta, (1 << 256) - 1, spec)
+        require(F.mont_pow.launches - before == 1, "mont_pow below 2^256 must be one launch")
         log(f"kernel mont_pow {spec.name} ({B},16): exponents 2^256 + 7 and 2^300 + 5 equal to plain and python ints, "
             f"two launches each (256-bit pieces); 2^256 - 1 one launch")
     _, ta, _ = operands["Fr"]
@@ -641,18 +615,18 @@ def phase_kernels_field(torch, dev, rng):
     x1 = ta[-1:].contiguous()
     for even_odd in (True, False):
         per[even_odd] = {
-            "batch_1": device_ms(torch, lambda: FK.mont_pow(x1, e, F.FR, even_odd=even_odd), reps=20),
-            f"batch_{B}": device_ms(torch, lambda: FK.mont_pow(ta, e, F.FR, even_odd=even_odd), reps=20),
+            "batch_1": device_ms(torch, lambda: F.mont_pow(x1, e, F.FR, even_odd=even_odd), reps=20),
+            f"batch_{B}": device_ms(torch, lambda: F.mont_pow(ta, e, F.FR, even_odd=even_odd), reps=20),
         }
     latency = {"fmul_eo": per[True]["batch_1"] / products, "fmul": per[False]["batch_1"] / products}
     def by_k1(x):  # the same chain as one K1 launch per product: field.pow_const before mont_pow
-        return FK.mont_pow_plain(x, e, F.FR, mul=FK.mont_mul)
+        return F.mont_pow_plain(x, e, F.FR, mul=F.mont_mul)
 
     k1_chain = {"batch_1": device_ms(torch, lambda: by_k1(x1), reps=2, sleep_ms=80.0),
                 f"batch_{B}": device_ms(torch, lambda: by_k1(ta), reps=2, sleep_ms=80.0)}
     k1_chain_call = cuda_ms(torch, lambda: by_k1(ta), reps=3)
-    ms = cuda_ms(torch, lambda: FK.mont_pow(ta, e, F.FR))
-    _, plain_ms = timed_once(torch, lambda: FK.mont_pow_plain(ta, e, F.FR))
+    ms = cuda_ms(torch, lambda: F.mont_pow(ta, e, F.FR))
+    _, plain_ms = timed_once(torch, lambda: F.mont_pow_plain(ta, e, F.FR))
     results["mont_pow"] = {
         "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "shape": {"n": B, "exponent": "r - 2"},
         **bound(2 * B * FE_BYTES, products * B),
@@ -912,10 +886,10 @@ def phase_kernels_decide(torch, dev, rng, results_field):
     from snark_verifier_tpu_torch import entry as E
     from snark_verifier_tpu_torch.ops import curve as C
     from snark_verifier_tpu_torch.ops import pairing as PAIR
-    from snark_verifier_tpu_torch.ops import curve_cuda as CK
+    from snark_verifier_tpu_torch.ops import curve as C
     from snark_verifier_tpu_torch.ops import field as F
     from snark_verifier_tpu_torch.ops import msm_cuda as MK
-    from snark_verifier_tpu_torch.ops import tower_cuda as TC
+    from snark_verifier_tpu_torch.ops import tower as T
     from snark_verifier_tpu_torch.util import bn254
 
     results = {}
@@ -929,10 +903,10 @@ def phase_kernels_decide(torch, dev, rng, results_field):
     ps[0], qs[1], qs[2], qs[3] = None, ps[1], bn254.g1_neg(ps[2]), None
     p = C.g1_from_affine_ints(ps, dev)
     q = C.g1_from_affine_ints(qs, dev)
-    r = CK.g1_add(p, q)  # projective (z != 1) first operands
+    r = C.g1_add(p, q)  # projective (z != 1) first operands
     r, q = (C.G1(*(c.reshape(32, 1024, 16) for c in t)) for t in (r, q))
     mask = torch.as_tensor([i < 4 or rng.random() < 0.5 for i in range(n)], device=dev).reshape(32, 1024)
-    got, want = CK.g1_add_select(mask, r, q), CK.g1_add_select_plain(mask, r, q)
+    got, want = C.g1_add_select(mask, r, q), C.g1_add_select_plain(mask, r, q)
     torch.cuda.synchronize()
     require(all(torch.equal(g, w) for g, w in zip(got, want)), "g1_add_select: kernel != plain")
     sums = [bn254.g1_add(x, y) for x, y in zip(ps[:64], qs[:64])]
@@ -940,8 +914,8 @@ def phase_kernels_decide(torch, dev, rng, results_field):
     want_aff = [bn254.g1_add(s, y) if k else s for s, y, k in zip(sums, qs[:64], m)]
     require(C.g1_to_affine_ints(C.G1(*(c.reshape(-1, 16)[:64] for c in got))) == want_aff,
             "g1_add_select: kernel != oracle")
-    ms = cuda_ms(torch, lambda: CK.g1_add_select(mask, r, q))
-    plain_ms = cuda_ms(torch, lambda: CK.g1_add_select_plain(mask, r, q))
+    ms = cuda_ms(torch, lambda: C.g1_add_select(mask, r, q))
+    plain_ms = cuda_ms(torch, lambda: C.g1_add_select_plain(mask, r, q))
     results["g1_add_select"] = {"max_abs_err": max_abs_err(torch, got, want), "ms": ms, "plain_ms": plain_ms,
                                 **bound(9 * n * FE_BYTES + n, MONT_PER["add"] * n)}
     log(f"kernel g1_add_select (32 x 1024 pairs): equal to plain and oracle; kernel {ms:.4f} ms, "
@@ -953,7 +927,7 @@ def phase_kernels_decide(torch, dev, rng, results_field):
     by_batch = {}
     for nwin, window in HORNER_SHAPES:
         pts = [pool[rng.randrange(64)] for _ in range(2 * nwin)]
-        tot = C.G1(*(c.reshape(2, nwin, 16) for c in CK.g1_double(C.g1_from_affine_ints(pts, dev))))
+        tot = C.G1(*(c.reshape(2, nwin, 16) for c in C.g1_double(C.g1_from_affine_ints(pts, dev))))
         want, plain_ms = timed_once(torch, lambda: MK.horner_combine_plain(tot, window))  # ~4 s
         want_aff = [bn254.g1_msm([2 << (window * w) for w in range(nwin)], pts[i * nwin:(i + 1) * nwin]) for i in range(2)]
         require(C.g1_to_affine_ints(want) == want_aff, f"horner_combine_plain nwin={nwin}: != oracle")
@@ -987,7 +961,7 @@ def phase_kernels_decide(torch, dev, rng, results_field):
 
     for batch in (2, 4096):
         (va, a), (vb, b) = rand_fq12(batch), rand_fq12(batch)
-        got, want = TC.fq12_mul_flat(a, b), TC.fq12_mul_flat_plain(a, b)
+        got, want = T.fq12_mul_flat(a, b), T.fq12_mul_flat_plain(a, b)
         torch.cuda.synchronize()
         require(torch.equal(got, want), f"fq12_mul B={batch}: kernel != plain")
         dec = F.FQ.decode(got[:, :2])
@@ -997,8 +971,8 @@ def phase_kernels_decide(torch, dev, rng, results_field):
 
         for i in range(2):
             require(tree(dec, i) == bn254.fq12_mul(tree(va, i), tree(vb, i)), f"fq12_mul B={batch}: kernel != oracle")
-        ms = cuda_ms(torch, lambda: TC.fq12_mul_flat(a, b))
-        plain_ms = cuda_ms(torch, lambda: TC.fq12_mul_flat_plain(a, b))
+        ms = cuda_ms(torch, lambda: T.fq12_mul_flat(a, b))
+        plain_ms = cuda_ms(torch, lambda: T.fq12_mul_flat_plain(a, b))
         res = {"max_abs_err": max_abs_err(torch, [got], [want]), "ms": ms, "plain_ms": plain_ms,
                **bound(3 * 12 * batch * FE_BYTES, MONT_PER["fq12"] * batch)}
         log(f"kernel fq12_mul (B={batch}): equal to plain and oracle; kernel {ms:.4f} ms, "
@@ -1093,7 +1067,6 @@ def phase_kernels_add(torch, dev, rng, results_field):
     64 points.  Then device ms per launch at each width, and the chain of
     one add (``one_item_chain``)."""
     from snark_verifier_tpu_torch.ops import curve as C
-    from snark_verifier_tpu_torch.ops import curve_cuda as CK
     from snark_verifier_tpu_torch.util import bn254
 
     top = max(ADD_WIDTHS)
@@ -1102,7 +1075,7 @@ def phase_kernels_add(torch, dev, rng, results_field):
     qs = [pool[rng.randrange(64)] for _ in range(2 * top)]
     ps[0], qs[1], qs[2], qs[3] = None, ps[1], bn254.g1_neg(ps[2]), None
     P2, Q2 = C.g1_from_affine_ints(ps, dev), C.g1_from_affine_ints(qs, dev)
-    R2 = CK.g1_add_plain(P2, Q2)  # projective first operands (z != 1)
+    R2 = C.g1_add_plain(P2, Q2)  # projective first operands (z != 1)
 
     # the oracle on 64 points: P + Q, (P + Q) + Q, and K5's select
     def first(pt):
@@ -1110,10 +1083,10 @@ def phase_kernels_add(torch, dev, rng, results_field):
 
     m64 = torch.tensor([i % 3 != 1 for i in range(64)], device=dev)
     sums = [bn254.g1_add(x, y) for x, y in zip(ps[:64], qs[:64])]
-    require(C.g1_to_affine_ints(CK.g1_add(first(P2), first(Q2))) == sums, "g1_add (lanes): != oracle")
-    require(C.g1_to_affine_ints(CK.g1_add(first(R2), first(Q2))) == [bn254.g1_add(s, y) for s, y in zip(sums, qs)],
+    require(C.g1_to_affine_ints(C.g1_add(first(P2), first(Q2))) == sums, "g1_add (lanes): != oracle")
+    require(C.g1_to_affine_ints(C.g1_add(first(R2), first(Q2))) == [bn254.g1_add(s, y) for s, y in zip(sums, qs)],
             "g1_add (lanes), projective first operand: != oracle")
-    require(C.g1_to_affine_ints(CK.g1_add_select(m64, first(P2), first(Q2))) ==
+    require(C.g1_to_affine_ints(C.g1_add_select(m64, first(P2), first(Q2))) ==
             [s if k else x for s, x, k in zip(sums, ps, m64.tolist())], "g1_add_select (lanes): != oracle")
 
     checked = 0
@@ -1126,13 +1099,13 @@ def phase_kernels_add(torch, dev, rng, results_field):
                      "random": torch.rand(batch, device=dev) < 0.5,
                      "broadcast": (torch.arange(batch[0], device=dev) % 3 != 1).reshape(-1, *([1] * (len(batch) - 1)))}
             ins = [c.expand(full) for c in (*p, *q)]
-            kept, _, _, _, _ = CK.point_operands(ins, masks["broadcast"].expand(batch), batch)
+            kept, _, _, _, _ = C.point_operands(ins, masks["broadcast"].expand(batch), batch)
             require(all(a is b for a, b in zip(kept, ins)), f"K2/K5 n={n} {kind}: an operand was copied")
-            want = CK.g1_add_plain(p, q)
-            require(all(torch.equal(g, w) for g, w in zip(CK.g1_add(p, q), want)), f"g1_add n={n} {kind}: != plain")
+            want = C.g1_add_plain(p, q)
+            require(all(torch.equal(g, w) for g, w in zip(C.g1_add(p, q), want)), f"g1_add n={n} {kind}: != plain")
             for mname, m in masks.items():
-                want = CK.g1_add_select_plain(m, p, q)
-                got = CK.g1_add_select(m, p, q)
+                want = C.g1_add_select_plain(m, p, q)
+                got = C.g1_add_select(m, p, q)
                 require(all(torch.equal(g, w) for g, w in zip(got, want)),
                         f"g1_add_select n={n} {kind} mask {mname}: != plain")
                 checked += 1
@@ -1147,29 +1120,29 @@ def phase_kernels_add(torch, dev, rng, results_field):
         p, q = C.G1(*(c[:n] for c in R2)), C.G1(*(c[:n] for c in Q2))
         m = torch.rand(n, device=dev) < 0.5
         for name, cond in (("g1_add", None), ("g1_add_select", m)):
-            ms = device_ms(torch, lambda: CK.add_points(cond, p, q), reps=50)
+            ms = device_ms(torch, lambda: C.add_points(cond, p, q), reps=50)
             b = bound(9 * n * FE_BYTES + (n if cond is not None else 0), MONT_PER["add"] * n)
             out[name][n] = {"device_ms": ms, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
             log(f"kernel {name} n={n}: device ms per launch {ms:.6f}; bound {b['bound_ms']:.6f} ms ({b['bound_by']})")
     # the chain of one add: a launch of one group less an empty launch, in turns
     one_p, one_q, one_m = C.G1(*(c[:1] for c in R2)), C.G1(*(c[:1] for c in Q2)), torch.ones(1, dtype=torch.bool, device=dev)
     for name, cond in (("g1_add", None), ("g1_add_select", one_m)):
-        chain = one_item_chain(torch, lambda: CK.add_points(cond, one_p, one_q))  # noqa: B023
+        chain = one_item_chain(torch, lambda: C.add_points(cond, one_p, one_q))  # noqa: B023
         log(f"kernel {name}: one add's launch less an empty launch {chain} ms (device_ms, in turns); products alone "
             f"2 x fmul_eo {2 * latency['fmul_eo']:.6f} ms")
-        out[name] = {"by_width": out[name], "block": CK.ADD_BLOCK, "group_lanes": CK.GROUP, "one_add": chain,
+        out[name] = {"by_width": out[name], "block": C.ADD_BLOCK, "group_lanes": C.GROUP, "one_add": chain,
                      "critical_path_ms": chain["chain_ms"], "products_on_chain_ms": 2 * latency["fmul_eo"]}
     return out
 
 
-def add_launch_recorder(CK):
-    """Wrap ``curve_cuda.add_points`` to record the width of every K2/K5
+def add_launch_recorder(C):
+    """Wrap ``curve.add_points`` to record the width of every K2/K5
     launch (it launches nothing of its own), and ``point_operands`` to record
     how each call's operands fold at the last batch dim: how many reach the
     kernel as they are, and the layout of each one copied.  Returns (record,
     restore)."""
     rec = {"g1_add": [], "g1_add_select": [], "folds": {"calls": 0, "folded": 0, "copied": []}}
-    launch, fold = CK.add_points, CK.point_operands
+    launch, fold = C.add_points, C.point_operands
 
     def recording(cond, p, q, *a, **k):
         out, n = launch(cond, p, q, *a, **k)
@@ -1188,10 +1161,10 @@ def add_launch_recorder(CK):
                 rec["folds"]["copied"].append({"batch": list(batch), "strides": list(t.stride())})
         return got
 
-    CK.add_points, CK.point_operands = recording, folding
+    C.add_points, C.point_operands = recording, folding
 
     def restore():
-        CK.add_points, CK.point_operands = launch, fold
+        C.add_points, C.point_operands = launch, fold
 
     return rec, restore
 
@@ -1203,17 +1176,17 @@ def fold_summary(folds: dict) -> str:
 
 
 def wrappers():
-    from snark_verifier_tpu_torch.ops import curve_cuda as CK
-    from snark_verifier_tpu_torch.ops import field_cuda as FK
+    from snark_verifier_tpu_torch.ops import curve as C
+    from snark_verifier_tpu_torch.ops import field as F
     from snark_verifier_tpu_torch.ops import keccak as K
     from snark_verifier_tpu_torch.ops import msm_cuda as MK
     from snark_verifier_tpu_torch.ops import pairing as PAIR
     from snark_verifier_tpu_torch.ops import poseidon as P
-    from snark_verifier_tpu_torch.ops import tower_cuda as TC
+    from snark_verifier_tpu_torch.ops import tower as T
 
-    return {"mont_mul": FK.mont_mul, "mont_pow": FK.mont_pow, "g1_add": CK.g1_add, "g1_double": CK.g1_double,
-            "msm_scan": MK.msm_scan, "g1_add_select": CK.g1_add_select, "horner_combine": MK.horner_combine,
-            "fq12_mul": TC.fq12_mul_flat,
+    return {"mont_mul": F.mont_mul, "mont_pow": F.mont_pow, "g1_add": C.g1_add, "g1_double": C.g1_double,
+            "msm_scan": MK.msm_scan, "g1_add_select": C.g1_add_select, "horner_combine": MK.horner_combine,
+            "fq12_mul": T.fq12_mul_flat,
             "msm_window": MK.msm_window, "msm_horner": MK.msm_horner, "miller_loop": PAIR.miller_loop_pair,
             "final_exp": PAIR.final_exponentiation, "poseidon_perm": P.poseidon_perm, "keccak256": K.keccak256_cuda}
 
@@ -1226,10 +1199,10 @@ def count_launches(torch, run, required, absent=()):
     ``field.pow_const``, through which ``field.inv`` goes; none launches
     anything of its own) and fails unless each pairing check made one launch
     of each of K7's pairing kernels and no single Fq12 product, each small MSM
-    one K4 launch (or, with ``MEGA`` off, 64 of K8 and of K9), and each
-    ``pow_const``/``inv`` one ``mont_pow`` launch."""
+    one K4 launch and none of K8 or K9, and each ``pow_const``/``inv`` one
+    ``mont_pow`` launch."""
     from snark_verifier_tpu_torch.ops import field as F
-    from snark_verifier_tpu_torch.ops import msm_cuda as MK
+    from snark_verifier_tpu_torch.ops import msm as M
     from snark_verifier_tpu_torch.ops import pairing as PAIR
 
     kernels = wrappers()
@@ -1243,14 +1216,14 @@ def count_launches(torch, run, required, absent=()):
             return fn(*a, **k)
         return wrapper
 
-    check, tables, pow_const = PAIR.kzg_pairing_check, MK.build_tables, F.pow_const
-    PAIR.kzg_pairing_check, MK.build_tables = counted("pairing_checks", check), counted("small_msms", tables)
+    check, tables, pow_const = PAIR.kzg_pairing_check, M.build_tables, F.pow_const
+    PAIR.kzg_pairing_check, M.build_tables = counted("pairing_checks", check), counted("small_msms", tables)
     F.pow_const = counted("pow_chains", pow_const)
     try:
         result = run()
         torch.cuda.synchronize()
     finally:
-        PAIR.kzg_pairing_check, MK.build_tables, F.pow_const = check, tables, pow_const
+        PAIR.kzg_pairing_check, M.build_tables, F.pow_const = check, tables, pow_const
     launches = {name: k.launches for name, k in kernels.items()}
     for name in required:
         require(launches[name] > 0, f"{name} was not launched by the main path")
@@ -1260,13 +1233,9 @@ def count_launches(torch, run, required, absent=()):
     require(launches["fq12_mul"] == 0 and all(launches[k] == checks for k in PAIRING_KERNELS)
             and sum(launches[k] for k in PAIRING_KERNELS) <= 3 * checks,
             f"K7 launches {[launches[k] for k in ('fq12_mul', *PAIRING_KERNELS)]} for {checks} pairing checks")
-    if launches["msm_window"] == 0:
-        require(launches["msm_scan"] == msms and launches["msm_horner"] == 0,
-                f"{launches['msm_scan']} K4 launches for {msms} small MSMs")
-    else:
-        require(launches["msm_window"] == launches["msm_horner"] == 64 * msms and launches["msm_scan"] == 0,
-                f"K8/K9/K4 launches {[launches[k] for k in ('msm_window', 'msm_horner', 'msm_scan')]} "
-                f"for {msms} small MSMs with MEGA off")
+    require(launches["msm_scan"] == msms and launches["msm_window"] == launches["msm_horner"] == 0,
+            f"K4/K8/K9 launches {[launches[k] for k in ('msm_scan', 'msm_window', 'msm_horner')]} "
+            f"for {msms} small MSMs")
     require(launches["mont_pow"] == chains, f"{launches['mont_pow']} mont_pow launches for {chains} pow_const/inv calls")
     log(f"path: {checks} pairing checks ({launches['miller_loop']} + {launches['final_exp']} K7 launches, "
         f"{launches['fq12_mul']} single Fq12 products), {msms} small MSMs ({launches['msm_scan']} K4 launches), "
@@ -1369,9 +1338,10 @@ def phase_poseidon(torch, dev, card):
 
 def phase_aggregation(torch, dev, card):
     """The k=20 outer snark at B=8 through ``entry.aggregation_entry`` (both
-    accumulators decided per proof), with MEGA on (K4) and off (K8/K9)."""
+    accumulators decided per proof).  Returns its launches, its profile and
+    K4's operands of its first small MSM."""
     from snark_verifier_tpu_torch import entry as E
-    from snark_verifier_tpu_torch.ops import msm_cuda as MK
+    from snark_verifier_tpu_torch.ops import msm as M
     from snark_verifier_tpu_torch.parallel.batch import decode_accumulator
 
     fx = E.aggregation_fixture()
@@ -1383,58 +1353,43 @@ def phase_aggregation(torch, dev, card):
     bad = tuple(a.clone() for a in args)
     bad[0][1, 7] ^= 1  # one byte of the proof (row 1)
     bad[1][2, FLIPPED_LIMB, 0] ^= 1  # one bit of one instance limb (row 2)
-    runs, captured = {}, []
-    windowed = MK.msm_windowed
+    captured, scan_inputs = [], M.scan_inputs
 
-    def capturing(table, digits):  # keeps the inputs of the path's two-kernel MSMs; launches nothing
-        captured.append((table, digits))
-        return windowed(table, digits)
+    def capturing(*a, **k):  # keeps K4's operands of the path's small MSMs; launches nothing
+        captured.append(scan_inputs(*a, **k))
+        return captured[-1]
 
-    for mega, required, absent in ((True, AGG_MEGA_KERNELS, ("msm_window", "msm_horner")),
-                                   (False, AGG_WINDOWED_KERNELS, ("msm_scan",))):
-        MK.MEGA = mega
-        MK.msm_windowed = capturing
-        try:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out, launches = count_launches(torch, lambda: fn(*args), required, absent)
-            first_s = time.perf_counter() - t0
-            MK.msm_windowed = windowed
-            require(launches["g1_double"] == AGG_DBL_LAUNCHES and
-                    (mega or launches["msm_window"] == launches["msm_horner"] == AGG_WINDOW_LAUNCHES),
-                    f"aggregation (MEGA {mega}): K3/K8/K9 launches "
-                    f"{[launches[k] for k in ('g1_double', 'msm_window', 'msm_horner')]}, not {AGG_DBL_LAUNCHES} and "
-                    f"{AGG_WINDOW_LAUNCHES} each of K8/K9 with MEGA off")
-            require(tuple(out["lhs_x"].shape) == (2, AGG_BATCH, 16), "aggregation: outputs must be (2, B, 16)")
-            for row in range(AGG_BATCH):
-                got = [decode_accumulator({k: v[a] for k, v in out.items() if k != "ok"}, row) for a in range(2)]
-                require(got == want, f"aggregation (MEGA {mega}) row {row}: accumulators != native")
-            require(out["ok"].all().item(), f"aggregation (MEGA {mega}): every proof must decide True")
-            bad_ok = fn(*bad)["ok"].cpu().tolist()
-            require(bad_ok == [r not in (1, 2) for r in range(AGG_BATCH)],
-                    f"aggregation (MEGA {mega}): the mutated byte and the flipped limb must clear ok, got {bad_ok}")
-            warm, times = warm_times(torch, fn, args, reps=2)
-            log(f"aggregation MEGA {'on (K4)' if mega else 'off (K8/K9)'}: both accumulators equal native, decide "
-                f"True on all {AGG_BATCH} rows, mutated byte and flipped limb rejected; first {first_s:.3f} s, warm "
-                f"median {warm:.4f} s of {[round(t, 4) for t in times]}; launches {launches}, on {card}")
-            per_launch, least = {}, None
-            if not mega:
-                per_launch, least = profile_run(torch, "aggregation MEGA off", "msm_window", fn, args, warm)
-            runs[mega] = (out, launches, per_launch, least)
-        finally:
-            MK.MEGA, MK.msm_windowed = True, windowed
-    on, off = runs[True][0], runs[False][0]
-    require(all(torch.equal(on[k], off[k]) for k in on), "aggregation: MEGA on and off must agree")
-    log("aggregation: MEGA on and off give the same affine accumulators and ok")
-    require(len(captured) == runs[False][1]["msm_window"] // MK.NWINDOWS > 0,
-            "aggregation: every two-kernel MSM of the MEGA-off run must be captured")
-    return runs[False][1], runs[False][2], runs[False][3], captured[0]
+    M.scan_inputs = capturing
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, launches = count_launches(torch, lambda: fn(*args), AGG_KERNELS, ("msm_window", "msm_horner"))
+        first_s = time.perf_counter() - t0
+    finally:
+        M.scan_inputs = scan_inputs
+    require(launches["g1_double"] == AGG_DBL_LAUNCHES,
+            f"aggregation: {launches['g1_double']} K3 launches, not {AGG_DBL_LAUNCHES}")
+    require(len(captured) == launches["msm_scan"] > 0, "aggregation: every small MSM of the run must be captured")
+    require(tuple(out["lhs_x"].shape) == (2, AGG_BATCH, 16), "aggregation: outputs must be (2, B, 16)")
+    for row in range(AGG_BATCH):
+        got = [decode_accumulator({k: v[a] for k, v in out.items() if k != "ok"}, row) for a in range(2)]
+        require(got == want, f"aggregation row {row}: accumulators != native")
+    require(out["ok"].all().item(), "aggregation: every proof must decide True")
+    bad_ok = fn(*bad)["ok"].cpu().tolist()
+    require(bad_ok == [r not in (1, 2) for r in range(AGG_BATCH)],
+            f"aggregation: the mutated byte and the flipped limb must clear ok, got {bad_ok}")
+    warm, times = warm_times(torch, fn, args, reps=2)
+    log(f"aggregation: both accumulators equal native, decide True on all {AGG_BATCH} rows, mutated byte and "
+        f"flipped limb rejected; first {first_s:.3f} s, warm median {warm:.4f} s of {[round(t, 4) for t in times]}; "
+        f"launches {launches}, on {card}")
+    per_launch, least = profile_run(torch, "aggregation", "msm_scan", fn, args, warm)
+    return launches, per_launch, least, captured[0]
 
 
 def phase_kernels_on_path(torch, table, digits):
     """K8 and K9 against their plain versions on the card, bit for bit, on
-    the inputs of the outer snark's first two-kernel MSM (captured in its
-    MEGA-off run): one middle window, its Horner step (``horner_cases``:
+    K4's operands of the outer snark's first small MSM (captured in its
+    run): one middle window, its Horner step (``horner_cases``:
     onto the identity, as the MSM's first window runs, onto a projective
     accumulator, and the add's edge cases); and K4 on the whole MSM against
     its plain version and K8/K9."""
@@ -1517,7 +1472,7 @@ def phase_config4(torch, dev, card):
 
 def phase_slice(torch, dev, card):
     from snark_verifier_tpu_torch import entry as E
-    from snark_verifier_tpu_torch.ops import curve_cuda as CK
+    from snark_verifier_tpu_torch.ops import curve as C
     from snark_verifier_tpu_torch.parallel.batch import pack_instances, pack_proofs
 
     t0 = time.perf_counter()
@@ -1537,7 +1492,7 @@ def phase_slice(torch, dev, card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    widths, restore = add_launch_recorder(CK)
+    widths, restore = add_launch_recorder(C)
     try:
         out, launches = count_launches(torch, lambda: fn(*args), SLICE_KERNELS, absent=("poseidon_perm",))
     finally:
@@ -1694,7 +1649,7 @@ def phase_decide(torch, dev, card, out, wrong_row, verify_s):
     one row; then build_verifier(decide_dk) on 8 proofs against the host
     oracle."""
     from snark_verifier_tpu_torch import entry as E
-    from snark_verifier_tpu_torch.ops import curve_cuda as CK
+    from snark_verifier_tpu_torch.ops import curve as C
     from snark_verifier_tpu_torch.parallel.batch import build_verifier, pack_instances, pack_proofs
 
     fx = E.fixture(E.K, "gwc")
@@ -1706,7 +1661,7 @@ def phase_decide(torch, dev, card, out, wrong_row, verify_s):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    widths, restore = add_launch_recorder(CK)
+    widths, restore = add_launch_recorder(C)
     try:
         ok, launches = count_launches(torch, lambda: decider(*good_args), DECIDE_KERNELS)
     finally:
@@ -1900,7 +1855,6 @@ def phase_ipa_decide(torch, dev, card, rng):
     warm times, peak memory."""
     from snark_verifier_tpu_torch.loader import EcPoint, Scalar
     from snark_verifier_tpu_torch.loader.torch_loader import TorchLoader, TorchPoint, dk_points
-    from snark_verifier_tpu_torch.ops import curve as C
     from snark_verifier_tpu_torch.ops import field as F
     from snark_verifier_tpu_torch.ops.convert import ints_to_tensor
     from snark_verifier_tpu_torch.pcs.ipa import IpaAccumulator, IpaDecidingKey
@@ -2301,7 +2255,7 @@ def main() -> int:
     # each kernel's launches, and its mean device ms per launch (torch.profiler),
     # on the path that counts it: the slice for K1-K4 and mont_pow, the decide for K5-K7
     # (K7's single product launches on no path: the pairing runs its own two
-    # kernels), the outer snark with MEGA off for K8-K9
+    # kernels; nor do K8-K9: the outer snark's count of them is 0)
     windowed = ("msm_window", "msm_horner")
     launches = {**{k: decide_launches[k] for k in (*DECIDE_KERNELS, "fq12_mul")},
                 **{k: slice_launches[k] for k in SLICE_KERNELS}, **{k: agg_launches[k] for k in windowed},
@@ -2321,7 +2275,7 @@ def main() -> int:
         for name, (src, rep) in KERNELS.items()
     ]
     paths = {"verify": slice_launches, "decide": decide_launches, "poseidon_verify": poseidon_launches,
-             "outer_snark_mega_off": agg_launches}
+             "outer_snark": agg_launches}
     for row in report:
         if row["name"] in ("mont_mul", "mont_pow", "poseidon_perm", "keccak256"):
             row["launches_by_path"] = {k: v[row["name"]] for k, v in paths.items()}

@@ -7,6 +7,9 @@ shared library with a plain C interface, which is loaded with ``ctypes``.  Tenso
 ``.gitignore``), named by a hash of the sources, so an edit rebuilds and an
 unchanged tree reuses it.  Nothing is built at import time: the first kernel
 launch builds.
+
+Every kernel wrapper launches through ``launch``, after shaping its operands
+with ``check_limbs``, ``aligned`` and ``field_arg``.
 """
 
 from __future__ import annotations
@@ -19,6 +22,10 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
+
+from snark_verifier_tpu_torch.ops.limbs import NLIMB
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -138,3 +145,35 @@ def check(code: int, kernel: str) -> None:
     if code != 0:
         msg = library().svtpu_error_string(code).decode()
         raise RuntimeError(f"{kernel} launch failed: cuda error {code} ({msg})")
+
+
+@functools.cache
+def field_arg(spec):
+    """A ``field.FieldSpec``'s modulus words and n0 as a ctypes array (the
+    kernels' Field)."""
+    return (ctypes.c_uint32 * len(spec.kernel_words))(*map(int, spec.kernel_words))
+
+
+def check_limbs(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is int64 with a trailing limb axis of 16."""
+    for t in tensors:
+        if t.dtype != torch.int64 or t.dim() == 0 or t.shape[-1] != NLIMB:
+            raise ValueError(f"{name}: expected int64 (..., {NLIMB}) limbs, got {t.dtype} {tuple(t.shape)}")
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous and 16-byte aligned (the kernels load limb pairs as longlong2)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def launch(entry: str, like: torch.Tensor, *args) -> None:
+    """Call the C entry point ``entry`` with ``args`` and, last, the current
+    stream of ``like``'s device, inside that device; raise if it failed."""
+    with torch.cuda.device(like.device):
+        code = getattr(library(), entry)(*args, stream_of(like))
+    check(code, entry)

@@ -20,7 +20,6 @@ import torch
 
 from snark_verifier_tpu_torch import _build
 from snark_verifier_tpu_torch.config import use_kernel
-from snark_verifier_tpu_torch.ops.field_cuda import stream_of
 from snark_verifier_tpu_torch.util.keccak import _RHO, _ROUND_CONSTANTS
 
 RATE = 136  # bytes
@@ -126,9 +125,7 @@ def keccak256_cuda(data, length: int):
     rows = math.prod(batch)
     msg = data.contiguous()  # (batch..., length) contiguous is (rows, length) row-major
     out = torch.empty(*batch, 32, dtype=torch.int64, device=data.device)
-    with torch.cuda.device(data.device):
-        code = _build.library().svtpu_keccak256(msg.data_ptr(), length, out.data_ptr(), rows, stream_of(data))
-    _build.check(code, "keccak256")
+    _build.launch("svtpu_keccak256", data, msg.data_ptr(), length, out.data_ptr(), rows)
     if rows:
         keccak256_cuda.launches += 1
     return out

@@ -13,39 +13,111 @@ point set with several scalar rows (the IPA decide's rows).  The TPU layout
 of the large MSM (``_bucket_runs_t``: transposed bit-reversed slabs, lane
 tiers) is not ported.
 
+``msm_batched`` is the JAX package's ``msm_pallas.msm_batched_fused``: the
+tables of ``build_tables`` and the balanced digits of ``signed_digits``,
+then one call of ``msm_cuda.msm_scan`` (kernel K4 on CUDA tensors).  Both
+MSMs take their digits from ``window_digits`` (unsigned) and
+``signed_digits`` (balanced).  Kernels are reached as attributes of their
+modules at call time, where the benchmark's wrappers find them.
+
 Scalars enter in canonical (non-Montgomery) limb form.
 """
 
 from __future__ import annotations
 
+import math
 import os
 
 import torch
 
 from snark_verifier_tpu_torch.ops import curve as C
 from snark_verifier_tpu_torch.ops import field as F
+from snark_verifier_tpu_torch.ops import msm_cuda
 from snark_verifier_tpu_torch.ops.curve import G1
 from snark_verifier_tpu_torch.ops.field import LIMB_BITS, NLIMB
-from snark_verifier_tpu_torch.ops.msm_cuda import NWINDOWS, WINDOW, horner_combine, msm_batched_fused
+from snark_verifier_tpu_torch.ops.msm_cuda import NWINDOWS, WINDOW
 
 # Check the flush invariant of ``_bucket_totals`` at every tree level (one
 # device-to-host read per level; off unless SVTPU_TORCH_CHECK_FLUSH=1).
 CHECK_FLUSH = os.environ.get("SVTPU_TORCH_CHECK_FLUSH") == "1"
 
 
-def _digits(scalars_canon):
-    """(..., 16) canonical limbs -> (..., 64) unsigned 4-bit digits, LSB first."""
-    shifts = torch.arange(0, LIMB_BITS, WINDOW, dtype=torch.int64, device=scalars_canon.device)
-    d = (scalars_canon.unsqueeze(-1) >> shifts) & ((1 << WINDOW) - 1)
-    return d.reshape(*scalars_canon.shape[:-1], NWINDOWS)
+def window_digits(scalars_canon, window: int, nwin: int):
+    """(..., 16) canonical limbs -> (..., nwin) unsigned ``window``-bit
+    digits, least significant first.  A window that divides 16 is one
+    shift-and-mask of every limb; any other is gathered digit by digit
+    across the limbs it straddles."""
+    mask = (1 << window) - 1
+    if LIMB_BITS % window == 0:
+        shifts = torch.arange(0, LIMB_BITS, window, dtype=torch.int64, device=scalars_canon.device)
+        d = ((scalars_canon.unsqueeze(-1) >> shifts) & mask).reshape(*scalars_canon.shape[:-1], -1)
+        return d if d.shape[-1] == nwin else d[..., :nwin]
+    cols = []
+    for w in range(nwin):
+        limb, shift = divmod(w * window, LIMB_BITS)
+        d = scalars_canon[..., limb] >> shift
+        got, k = LIMB_BITS - shift, limb + 1
+        while got < window and k < NLIMB:
+            d = d | (scalars_canon[..., k] << got)
+            got, k = got + LIMB_BITS, k + 1
+        cols.append(d & mask)
+    return torch.stack(cols, dim=-1)
 
 
-def msm_batched(points: G1, scalars_canon) -> G1:
+def signed_digits(scalars_canon, window: int = WINDOW, nwin: int = NWINDOWS):
+    """(..., 16) canonical limbs -> (..., nwin) int64 digits in
+    [-(2^(w-1) - 1), 2^(w-1)], least significant first (K4's [-8, 8] at the
+    default 4-bit windows).  Balanced recoding: a window above 2^(w-1)
+    borrows 2^w from the next one, and the top window of a 254-bit scalar
+    absorbs the last borrow."""
+    raw = window_digits(scalars_canon, window, nwin)
+    out = []
+    carry = torch.zeros_like(raw[..., 0])
+    for w in range(nwin):
+        t = raw[..., w] + carry
+        carry = (t > (1 << (window - 1))).long()
+        out.append(t - (carry << window))
+    return torch.stack(out, dim=-1)
+
+
+def build_tables(points: G1) -> torch.Tensor:
+    """T_k = k * P for k = 0..8 -> (9, 3, *points.batch_shape, 16).
+
+    The ladder of msm_pallas.py:398-405: doublings for even k, one add of P
+    for odd k (K2/K3 on CUDA tensors)."""
+    p1 = points
+    p2 = C.g1_double(p1)
+    p3 = C.g1_add(p2, p1)
+    p4 = C.g1_double(p2)
+    p5 = C.g1_add(p4, p1)
+    p6 = C.g1_double(p3)
+    p7 = C.g1_add(p6, p1)
+    p8 = C.g1_double(p4)
+    t0 = C.g1_identity(points.batch_shape, points.x.device)
+    return torch.stack([torch.stack(list(t)) for t in (t0, p1, p2, p3, p4, p5, p6, p7, p8)])
+
+
+def scan_inputs(points: G1, scalars_canon, nwindows: int = NWINDOWS):
+    """K4's operands for points batch (..., n) and scalars (..., n, 16)
+    canonical: the tables (9, 3, n, B, 16) of the points laid out
+    point-major (lane (i, b) is point i of proof b) and the balanced digits
+    (B, n, nwindows), B the product of the leading dims.
+
+    ``nwindows`` < 64 is a test hook, right only when every scalar is below
+    2^(4 * nwindows - 1)."""
+    n = points.batch_shape[-1]
+    B = math.prod(points.batch_shape[:-1])
+    pts = G1(*(c.reshape(B, n, NLIMB).transpose(0, 1) for c in points))
+    return build_tables(pts), signed_digits(scalars_canon.reshape(B, n, NLIMB), WINDOW, nwindows)
+
+
+def msm_batched(points: G1, scalars_canon, nwindows: int = NWINDOWS) -> G1:
     """Batched small MSM: points batch (..., n), scalars (..., n, 16)
-    canonical -> point batch (...,).  Runs the point-scan path
-    (``msm_cuda``): kernels K2, K3 and K4 on CUDA tensors, their plain
-    versions on CPU tensors."""
-    return msm_batched_fused(points, scalars_canon)
+    canonical -> point batch (...,).  ``scan_inputs``, then
+    ``msm_cuda.msm_scan``: kernels K2, K3 and K4 on CUDA tensors, their
+    plain versions on CPU tensors."""
+    acc = msm_cuda.msm_scan(*scan_inputs(points, scalars_canon, nwindows))
+    return G1(*(c.reshape(*points.batch_shape[:-1], NLIMB) for c in acc))
 
 
 def msm_batched_windowed(points: G1, scalars_canon) -> G1:
@@ -57,7 +129,7 @@ def msm_batched_windowed(points: G1, scalars_canon) -> G1:
     for _ in range((1 << WINDOW) - 2):
         table.append(C.g1_add(table[-1], points))
     table = [torch.stack([t[c] for t in table]) for c in range(3)]  # 3 x (16, ..., n, 16)
-    digits = _digits(scalars_canon)
+    digits = window_digits(scalars_canon, WINDOW, NWINDOWS)
     acc = C.g1_identity(points.batch_shape[:-1], points.x.device)
     for w in range(NWINDOWS - 1, -1, -1):
         for _ in range(WINDOW):
@@ -77,37 +149,6 @@ def scalar_mul(point: G1, scalar_canon) -> G1:
 # ---------------------------------------------------------------------------
 # Large-N Pippenger (one MSM): sort + pairwise tree bucket accumulation.
 # ---------------------------------------------------------------------------
-
-
-def _window_digits(scalars_canon, window: int, nwin: int):
-    """(n, 16) canonical limbs -> (n, nwin) unsigned ``window``-bit digits,
-    least significant first."""
-    mask = (1 << window) - 1
-    cols = []
-    for w in range(nwin):
-        limb, shift = divmod(w * window, LIMB_BITS)
-        d = scalars_canon[:, limb] >> shift
-        got, k = LIMB_BITS - shift, limb + 1
-        while got < window and k < NLIMB:
-            d = d | (scalars_canon[:, k] << got)
-            got, k = got + LIMB_BITS, k + 1
-        cols.append(d & mask)
-    return torch.stack(cols, dim=-1)
-
-
-def _signed_window_digits(scalars_canon, window: int, nwin: int):
-    """(n, 16) canonical limbs -> (n, nwin) signed digits in
-    [-(2^(w-1) - 1), 2^(w-1)], least significant first: a window above
-    2^(w-1) borrows 2^w from the next one, and the top window of a 254-bit
-    scalar absorbs the last borrow."""
-    raw = _window_digits(scalars_canon, window, nwin)
-    out = []
-    carry = torch.zeros_like(raw[:, 0])
-    for w in range(nwin):
-        t = raw[:, w] + carry
-        carry = (t > (1 << (window - 1))).long()
-        out.append(t - (carry << window))
-    return torch.stack(out, dim=-1)
 
 
 def msm_serial(points: G1, scalars_canon, window: int = 8, signed: bool = False) -> G1:
@@ -165,7 +206,7 @@ def msm_serial_rows(points: G1, scalars_canon_rows, window: int = 8, signed: boo
         win_chunk = max(1, ROWS_POINTS // n)
     totals = _chunked_totals(pts_pad, dig, neg, _bucket_count(window, signed), win_chunk)
     batch = scalars_canon_rows.shape[0]
-    return horner_combine(G1(*(c.reshape(batch, -1, NLIMB) for c in totals)), window)
+    return msm_cuda.horner_combine(G1(*(c.reshape(batch, -1, NLIMB) for c in totals)), window)
 
 
 def msm_serial_many(point_sets, scalars_canon, window: int = 8, signed: bool = False) -> list:
@@ -174,7 +215,7 @@ def msm_serial_many(point_sets, scalars_canon, window: int = 8, signed: bool = F
     the stacked (len(point_sets), nwin) totals.  Each result equals
     ``msm_serial``'s limb for limb."""
     totals = [window_totals(p, scalars_canon, window, signed) for p in point_sets]
-    out = horner_combine(G1(*(torch.stack(c) for c in zip(*totals))), window)
+    out = msm_cuda.horner_combine(G1(*(torch.stack(c) for c in zip(*totals))), window)
     return [G1(*(c[i] for c in out)) for i in range(len(point_sets))]
 
 
@@ -212,12 +253,12 @@ def _digit_rows(scalars_canon, window: int, signed: bool, n: int):
     dig = torch.zeros(nwin, n, dtype=torch.int64, device=dev)
     neg = None
     if signed:
-        sd = _signed_window_digits(scalars_canon, window, nwin)
+        sd = signed_digits(scalars_canon, window, nwin)
         dig[:, :n_orig] = sd.abs().T
         neg = torch.zeros(nwin, n, dtype=torch.bool, device=dev)
         neg[:, :n_orig] = (sd < 0).T
     else:
-        dig[:, :n_orig] = _window_digits(scalars_canon, window, nwin).T
+        dig[:, :n_orig] = window_digits(scalars_canon, window, nwin).T
     return dig, neg, _bucket_count(window, signed)
 
 
@@ -321,7 +362,7 @@ def _bucket_totals(pts_pad: G1, dig, nbuckets: int, neg=None) -> G1:
 def _horner_combine(totals: G1, window: int) -> G1:
     """sum_w 2^(w * window) totals_w, most significant window first (kernel
     K6 on CUDA tensors)."""
-    out = horner_combine(G1(*(c.unsqueeze(0) for c in totals)), window)
+    out = msm_cuda.horner_combine(G1(*(c.unsqueeze(0) for c in totals)), window)
     return G1(*(c[0] for c in out))
 
 

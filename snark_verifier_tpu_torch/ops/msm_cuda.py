@@ -1,7 +1,7 @@
-"""Kernel K4, the batched small MSM in one launch, with its plain version and
-the batched MSM built on it (``msm_batched_fused``); kernels K8 and K9, the
-two-kernel form of the same MSM, with their plain versions; kernel K6, the
-Horner window combine of the large MSM, with its plain version.
+"""Kernel K4, the batched small MSM in one launch; kernels K8 and K9, the
+two-kernel form of the same MSM; kernel K6, the Horner window combine of the
+large MSM; each with its plain version.  ``msm.msm_batched`` builds K4's
+operands and calls it.
 
 K4 (``csrc/msm.cu``) replaces ``snark_verifier_tpu/ops/msm_pallas.py``
 ``_scan_kernel_body`` (``_scan_call``, driven by ``msm_batched_fused``):
@@ -15,22 +15,18 @@ composition of the plain K8 and K9.  ``proofs_per_block`` is its one launch
 parameter (``scan_geometry``).  What bounds it on the H100 and what the
 design does about it is in the source's header.
 
-The tables T_k = k * P (k = 0..8) are built with the same ladder as
-``msm_pallas.py:398-405`` (doublings and adds through kernels K2/K3 on CUDA
-tensors), laid out ``(9, 3, n, B, 16)``, the one layout of K4, K8 and their
-plain versions.
+The tables T_k = k * P (k = 0..8, ``msm.build_tables``) are laid out ``(9,
+3, n, B, 16)``, the one layout of K4, K8 and their plain versions.
 
 K8 ``msm_window`` and K9 ``msm_horner`` (``csrc/msm.cu``) replace
 ``msm_pallas.py`` ``_window_kernel_body`` (``_window_call``) and
 ``_horner_kernel_body`` (``_horner_call``), which the JAX package runs when
-its one-kernel scan is off (``SVTPU_MSM_MEGA=0``, and always on its CPU
-path).  Per window, most significant first: K8 sums each proof's selected
-entries T_i[|d_i|] (y negated for d_i < 0), starting from the first point's
+its one-kernel scan is switched off, and always on its CPU path.  Per
+window, most significant first: K8 sums each proof's selected entries
+T_i[|d_i|] (y negated for d_i < 0), starting from the first point's
 selection; K9 computes acc = 16 acc + contrib with acc starting at the
-identity.  ``MEGA`` picks the form: True runs K4 (one launch per MSM), False
-K8/K9 (64 launches of each per MSM); both give the same limbs.  It starts
-from the environment variable ``SVTPU_TORCH_MSM_MEGA`` (default "1") and
-``msm_batched_fused`` reads it at every call.  ``msm_window_plain`` and
+identity.  ``msm_windowed`` runs them, 64 launches of each per MSM, and
+gives K4's limbs; no main path calls it.  ``msm_window_plain`` and
 ``msm_horner_plain`` run the same point operations in the same order as
 their kernels.
 
@@ -45,19 +41,14 @@ add per window, most significant first; the kernel runs the same operations.
 
 from __future__ import annotations
 
-import math
-import os
-
 import torch
 
 from snark_verifier_tpu_torch import _build
 from snark_verifier_tpu_torch.config import use_kernel
 from snark_verifier_tpu_torch.ops import curve as C
 from snark_verifier_tpu_torch.ops import field as F
-from snark_verifier_tpu_torch.ops.curve import G1
-from snark_verifier_tpu_torch.ops.curve_cuda import g1_add_plain, g1_double_plain
+from snark_verifier_tpu_torch.ops.curve import G1, g1_add_plain, g1_double_plain
 from snark_verifier_tpu_torch.ops.field import LIMB_BITS, NLIMB
-from snark_verifier_tpu_torch.ops.field_cuda import _aligned, check_limbs, field_arg, stream_of
 
 WINDOW = 4
 NWINDOWS = (NLIMB * LIMB_BITS) // WINDOW  # 64 signed 4-bit windows
@@ -68,44 +59,6 @@ MAX_PROOFS_PER_BLOCK = 8  # the window sums of 8 proofs fill 48 KB of K4's share
 # K4 blocks per SM: a block's Horner threads share its first warp, and a
 # third block on an SM slows every chain (chip_smoke.py's sweep, B = 8-1820)
 BLOCKS_PER_SM = 2
-
-# True: the one-kernel scan K4; False: the two-kernel form K8/K9.  Read by
-# msm_batched_fused at every call.
-MEGA = os.environ.get("SVTPU_TORCH_MSM_MEGA", "1") == "1"
-
-
-def signed_digits(scalars_canon):
-    """(..., 16) canonical limbs -> (..., 64) int64 digits in [-8, 8], least
-    significant first.  Balanced recoding: a window above 8 borrows 16 from
-    the next one (the top window of an Fr scalar is <= 3, so the last carry
-    is always absorbed)."""
-    shifts = torch.arange(0, LIMB_BITS, WINDOW, dtype=torch.int64, device=scalars_canon.device)
-    v = (scalars_canon.unsqueeze(-1) >> shifts) & ((1 << WINDOW) - 1)
-    v = v.reshape(*scalars_canon.shape[:-1], NWINDOWS)
-    out = []
-    carry = torch.zeros_like(v[..., 0])
-    for w in range(NWINDOWS):
-        t = v[..., w] + carry
-        carry = (t > (1 << (WINDOW - 1))).long()
-        out.append(t - (carry << WINDOW))
-    return torch.stack(out, dim=-1)
-
-
-def build_tables(points: G1) -> torch.Tensor:
-    """T_k = k * P for k = 0..8 -> (9, 3, *points.batch_shape, 16).
-
-    The ladder of msm_pallas.py:398-405: doublings for even k, one add of P
-    for odd k (K2/K3 on CUDA tensors)."""
-    p1 = points
-    p2 = C.g1_double(p1)
-    p3 = C.g1_add(p2, p1)
-    p4 = C.g1_double(p2)
-    p5 = C.g1_add(p4, p1)
-    p6 = C.g1_double(p3)
-    p7 = C.g1_add(p6, p1)
-    p8 = C.g1_double(p4)
-    t0 = C.g1_identity(points.batch_shape, points.x.device)
-    return torch.stack([torch.stack(list(t)) for t in (t0, p1, p2, p3, p4, p5, p6, p7, p8)])
 
 
 def msm_scan_plain(table, digits) -> G1:
@@ -142,15 +95,11 @@ def msm_scan(table, digits, proofs_per_block: int | None = None) -> G1:
         raise ValueError(f"msm_scan: proofs_per_block must be in 1..{MAX_PROOFS_PER_BLOCK}, got {proofs_per_block}")
     if not use_kernel(table, digits):
         return msm_scan_plain(table, digits)
-    table, digits = _aligned(table), digits.contiguous()
+    table, digits = _build.aligned(table), digits.contiguous()
     outs = [torch.empty(batch, NLIMB, dtype=torch.int64, device=table.device) for _ in range(3)]
     ppb, _ = scan_geometry(batch, torch.cuda.get_device_properties(table.device).multi_processor_count, proofs_per_block)
-    with torch.cuda.device(table.device):
-        code = _build.library().svtpu_msm_scan(
-            table.data_ptr(), digits.data_ptr(), *(o.data_ptr() for o in outs),
-            batch, n, digits.shape[-1], ppb, field_arg(F.FQ), stream_of(table),
-        )
-    _build.check(code, "msm_scan")
+    _build.launch("svtpu_msm_scan", table, table.data_ptr(), digits.data_ptr(), *(o.data_ptr() for o in outs),
+                  batch, n, digits.shape[-1], ppb, _build.field_arg(F.FQ))
     if batch:
         msm_scan.launches += 1
     return G1(*outs)
@@ -206,14 +155,10 @@ def msm_window(table, digits) -> G1:
         raise ValueError(f"msm_window: digits must be ({batch}, {n}), got {tuple(digits.shape)}")
     if not use_kernel(table, digits):
         return msm_window_plain(table, digits)
-    table, digits = _aligned(table), digits.contiguous()
+    table, digits = _build.aligned(table), digits.contiguous()
     outs = [torch.empty(batch, NLIMB, dtype=torch.int64, device=table.device) for _ in range(3)]
-    with torch.cuda.device(table.device):
-        code = _build.library().svtpu_msm_window(
-            table.data_ptr(), digits.data_ptr(), *(o.data_ptr() for o in outs),
-            batch, n, field_arg(F.FQ), WINDOW_BLOCK, stream_of(table),
-        )
-    _build.check(code, "msm_window")
+    _build.launch("svtpu_msm_window", table, table.data_ptr(), digits.data_ptr(), *(o.data_ptr() for o in outs),
+                  batch, n, _build.field_arg(F.FQ), WINDOW_BLOCK)
     if batch:
         msm_window.launches += 1
     return G1(*outs)
@@ -234,20 +179,16 @@ def msm_horner(acc: G1, contrib: G1) -> G1:
     """acc = 16 acc + contrib.  CUDA tensors launch K9 (one proof on a
     group of ``WINDOW_GROUP`` lanes, ``window_grid``'s blocks); CPU tensors
     take ``msm_horner_plain``."""
-    check_limbs("msm_horner", *acc, *contrib)
+    _build.check_limbs("msm_horner", *acc, *contrib)
     if acc.x.dim() != 2 or any(c.shape != acc.x.shape for c in (*acc, *contrib)):
         raise ValueError(f"msm_horner: acc and contrib must be six (B, {NLIMB}) tensors")
     if not use_kernel(*acc, *contrib):
         return msm_horner_plain(acc, contrib)
     batch = acc.x.shape[0]
-    ins = [_aligned(c) for c in (*acc, *contrib)]
+    ins = [_build.aligned(c) for c in (*acc, *contrib)]
     outs = [torch.empty(batch, NLIMB, dtype=torch.int64, device=ins[0].device) for _ in range(3)]
-    with torch.cuda.device(ins[0].device):
-        code = _build.library().svtpu_msm_horner(
-            *(t.data_ptr() for t in ins), *(o.data_ptr() for o in outs),
-            batch, field_arg(F.FQ), WINDOW_BLOCK, stream_of(ins[0]),
-        )
-    _build.check(code, "msm_horner")
+    _build.launch("svtpu_msm_horner", ins[0], *(t.data_ptr() for t in ins), *(o.data_ptr() for o in outs), batch,
+                  _build.field_arg(F.FQ), WINDOW_BLOCK)
     if batch:
         msm_horner.launches += 1
     return G1(*outs)
@@ -273,24 +214,6 @@ def msm_windowed(table, digits) -> G1:
     return _windowed(table, digits, msm_window, msm_horner)
 
 
-def msm_batched_fused(points: G1, scalars_canon, nwindows: int = NWINDOWS) -> G1:
-    """Batched small MSM: points batch (..., n), scalars (..., n, 16)
-    canonical -> point batch (...,).  ``MEGA`` (read at each call) picks K4
-    or K8/K9; the table ladder and the digits are shared.
-
-    ``nwindows`` < 64 is a test hook, right only when every scalar is below
-    2^(4 * nwindows - 1)."""
-    batch_shape = points.batch_shape[:-1]
-    n = points.batch_shape[-1]
-    B = math.prod(batch_shape)
-    # point-major (n, B) layout: lane (i, b) of the tables is point i of proof b
-    pts = G1(*(c.reshape(B, n, NLIMB).transpose(0, 1) for c in points))
-    table = build_tables(pts)
-    digits = signed_digits(scalars_canon.reshape(B, n, NLIMB))[..., :nwindows]
-    acc = msm_scan(table, digits) if MEGA else msm_windowed(table, digits)
-    return G1(*(c.reshape(*batch_shape, NLIMB) for c in acc))
-
-
 def horner_combine_plain(totals: G1, window: int) -> G1:
     """Plain version of K6.  totals: (B, nwin) point batch, window 0 least
     significant -> (B,) sum_w 2^(w * window) T_w."""
@@ -307,7 +230,7 @@ def horner_combine(totals: G1, window: int) -> G1:
     """Horner window combine of a batch of MSMs.  CUDA tensors launch K6,
     one warp per MSM; CPU tensors take ``horner_combine_plain``.  Shapes as
     in ``horner_combine_plain``; nwin at most 256."""
-    check_limbs("horner_combine", *totals)
+    _build.check_limbs("horner_combine", *totals)
     if totals.x.dim() != 3 or any(c.shape != totals.x.shape for c in totals):
         raise ValueError(f"horner_combine: totals must be three (B, nwin, {NLIMB}) tensors")
     if not 1 <= window <= 32:
@@ -315,14 +238,10 @@ def horner_combine(totals: G1, window: int) -> G1:
     if not use_kernel(*totals):
         return horner_combine_plain(totals, window)
     batch, nwin, _ = totals.x.shape
-    ins = [_aligned(c) for c in totals]
+    ins = [_build.aligned(c) for c in totals]
     outs = [torch.empty(batch, NLIMB, dtype=torch.int64, device=ins[0].device) for _ in range(3)]
-    with torch.cuda.device(ins[0].device):
-        code = _build.library().svtpu_horner_combine(
-            *(t.data_ptr() for t in ins), *(o.data_ptr() for o in outs),
-            batch, nwin, window, field_arg(F.FQ), stream_of(ins[0]),
-        )
-    _build.check(code, "horner_combine")
+    _build.launch("svtpu_horner_combine", ins[0], *(t.data_ptr() for t in ins), *(o.data_ptr() for o in outs), batch,
+                  nwin, window, _build.field_arg(F.FQ))
     if batch and nwin:
         horner_combine.launches += 1
     return G1(*outs)

@@ -17,7 +17,7 @@ runs all steps of both loops from the line tape of ``_line_tensors``, and
 chain in Fq), the easy part and the hard-part chain, with ``_frob_tables``
 as an argument.  A check is two launches.  ``miller_loop_pair_plain`` and
 ``final_exponentiation_plain`` keep the step loop and the chain with
-``fq12_mul_flat_plain``; the wrappers take them for CPU tensors.  On CUDA
+``tower.fq12_mul_flat_plain``; the wrappers take them for CPU tensors.  On CUDA
 tensors the plain versions' other Fq products (the line products, the
 Frobenius maps, the tower inverse) go through K1.  Every value stays
 reduced below p, so the kernels and the plain versions agree limb for limb.
@@ -39,9 +39,7 @@ from snark_verifier_tpu_torch.config import use_kernel
 from snark_verifier_tpu_torch.ops import curve as CRV
 from snark_verifier_tpu_torch.ops import field as F
 from snark_verifier_tpu_torch.ops import tower as T
-from snark_verifier_tpu_torch.ops.field_cuda import _aligned, check_limbs, field_arg, stream_of
 from snark_verifier_tpu_torch.ops.limbs import int_to_limbs
-from snark_verifier_tpu_torch.ops.tower_cuda import fq12_mul_flat_plain
 from snark_verifier_tpu_torch.util import bn254
 
 FQ = F.FQ
@@ -114,7 +112,7 @@ def _line_tensors(q1_key, q2_key, device: torch.device):
 
 def _mul_flat(x, y):
     """Flat Fq12 product of the plain versions."""
-    return fq12_mul_flat_plain(x, y)
+    return T.fq12_mul_flat_plain(x, y)
 
 
 def _conj_flat(x):
@@ -198,21 +196,17 @@ def miller_loop_pair(px1, py1, px2, py2, q1, q2):
     ``miller_loop_pair_plain``.  CUDA tensors launch the Miller-loop kernel
     (every step, one warp per lane of the doubled batch); CPU tensors take
     ``miller_loop_pair_plain``."""
-    check_limbs("miller_loop_pair", px1, py1, px2, py2)
+    _build.check_limbs("miller_loop_pair", px1, py1, px2, py2)
     if px1.dim() != 2 or any(t.shape != px1.shape for t in (py1, px2, py2)):
         raise ValueError(f"miller_loop_pair: expected four (B, {F.NLIMB}) coordinates")
     if not use_kernel(px1, py1, px2, py2):
         return miller_loop_pair_plain(px1, py1, px2, py2, q1, q2)
     B = px1.shape[0]
     _, lam, c3, dbl = _line_tensors(_g2_key(q1), _g2_key(q2), px1.device)
-    px, py = _aligned(torch.cat([px1, px2])), _aligned(torch.cat([py1, py2]))
+    px, py = _build.aligned(torch.cat([px1, px2])), _build.aligned(torch.cat([py1, py2]))
     out = torch.empty(12, 2 * B, F.NLIMB, dtype=torch.int64, device=px.device)
-    with torch.cuda.device(px.device):
-        code = _build.library().svtpu_miller_loop(
-            px.data_ptr(), py.data_ptr(), lam.data_ptr(), c3.data_ptr(), dbl.data_ptr(), out.data_ptr(),
-            2 * B, B, dbl.shape[0], field_arg(FQ), stream_of(px),
-        )
-    _build.check(code, "miller_loop")
+    _build.launch("svtpu_miller_loop", px, px.data_ptr(), py.data_ptr(), lam.data_ptr(), c3.data_ptr(), dbl.data_ptr(),
+                  out.data_ptr(), 2 * B, B, dbl.shape[0], _build.field_arg(FQ))
     if B:
         miller_loop_pair.launches += 1
     return out[:, :B], out[:, B:]
@@ -279,7 +273,7 @@ def final_exponentiation(f1, f2, lhs_inf, rhs_inf):
     one, shapes as ``final_exponentiation_plain``.  CUDA tensors launch the
     final-exponentiation kernel (one warp per batch element); CPU tensors
     take ``final_exponentiation_plain``."""
-    check_limbs("final_exponentiation", f1, f2)
+    _build.check_limbs("final_exponentiation", f1, f2)
     if f1.dim() != 3 or f1.shape[0] != 12 or f2.shape != f1.shape:
         raise ValueError(f"final_exponentiation: expected two (12, B, {F.NLIMB}) values, got {tuple(f1.shape)}")
     B = f1.shape[1]
@@ -288,16 +282,12 @@ def final_exponentiation(f1, f2, lhs_inf, rhs_inf):
             raise ValueError(f"final_exponentiation: masks must be bool ({B},), got {m.dtype} {tuple(m.shape)}")
     if not use_kernel(f1, f2, lhs_inf, rhs_inf):
         return final_exponentiation_plain(f1, f2, lhs_inf, rhs_inf)
-    a, b = _aligned(f1), _aligned(f2)
+    a, b = _build.aligned(f1), _build.aligned(f2)
     m1, m2 = lhs_inf.to(torch.uint8).contiguous(), rhs_inf.to(torch.uint8).contiguous()
     frob = _frob_tables(a.device)
     out = torch.empty_like(a)
-    with torch.cuda.device(a.device):
-        code = _build.library().svtpu_final_exp(
-            a.data_ptr(), b.data_ptr(), m1.data_ptr(), m2.data_ptr(), frob.data_ptr(), out.data_ptr(),
-            B, bn254.BN_X, field_arg(FQ), stream_of(a),
-        )
-    _build.check(code, "final_exp")
+    _build.launch("svtpu_final_exp", a, a.data_ptr(), b.data_ptr(), m1.data_ptr(), m2.data_ptr(), frob.data_ptr(),
+                  out.data_ptr(), B, bn254.BN_X, _build.field_arg(FQ))
     if B:
         final_exponentiation.launches += 1
     return out

@@ -28,7 +28,6 @@ import torch
 from snark_verifier_tpu_torch import _build
 from snark_verifier_tpu_torch.config import use_kernel
 from snark_verifier_tpu_torch.ops import field as F
-from snark_verifier_tpu_torch.ops.field_cuda import _aligned, check_limbs, field_arg, stream_of
 from snark_verifier_tpu_torch.ops.limbs import NLIMB, int_to_limbs
 from snark_verifier_tpu_torch.util.poseidon_opt import optimize_spec
 
@@ -170,20 +169,18 @@ def poseidon_perm(spec, state, inputs):
         raise ValueError(f"poseidon_perm: K10 is built for t = {KERNEL_T}, not t = {t}")
     if n >= t:
         raise ValueError(f"poseidon_perm: {n} inputs, at most t - 1 = {t - 1} a permutation")
-    check_limbs("poseidon_perm", state, *inputs)
+    _build.check_limbs("poseidon_perm", state, *inputs)
     if state.dim() < 2 or state.shape[-2] != t:
         raise ValueError(f"poseidon_perm: expected a (..., {t}, {NLIMB}) state, got {tuple(state.shape)}")
     batch = torch.broadcast_shapes(state.shape[:-2], *(x.shape[:-1] for x in inputs))
     rows = math.prod(batch)
-    st = _aligned(state.expand(*batch, t, NLIMB).reshape(rows, t, NLIMB))
-    ins = _aligned(torch.stack([x.expand(*batch, NLIMB) for x in inputs], -2).reshape(rows, n, NLIMB)) if n else None
+    st = _build.aligned(state.expand(*batch, t, NLIMB).reshape(rows, t, NLIMB))
+    ins = [x.expand(*batch, NLIMB) for x in inputs]
+    ins = _build.aligned(torch.stack(ins, -2).reshape(rows, n, NLIMB)) if n else None
     table = _tensors(spec, state.device)["table"]
     out = torch.empty(rows, t, NLIMB, dtype=torch.int64, device=state.device)
-    with torch.cuda.device(state.device):
-        code = _build.library().svtpu_poseidon_perm(
-            st.data_ptr(), None if ins is None else ins.data_ptr(), n, table.data_ptr(), table.shape[0],
-            out.data_ptr(), rows, t, spec.r_f, spec.r_p, field_arg(FR), stream_of(state))
-    _build.check(code, "poseidon_perm")
+    _build.launch("svtpu_poseidon_perm", state, st.data_ptr(), None if ins is None else ins.data_ptr(), n,
+                  table.data_ptr(), table.shape[0], out.data_ptr(), rows, t, spec.r_f, spec.r_p, _build.field_arg(FR))
     if rows:
         poseidon_perm.launches += 1
     return out.reshape(*batch, t, NLIMB)

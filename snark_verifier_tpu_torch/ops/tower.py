@@ -1,20 +1,36 @@
-"""Batched Fq2/Fq6/Fq12 tower arithmetic on int64 limb tensors.
+"""Batched Fq2/Fq6/Fq12 tower arithmetic on int64 limb tensors, with kernel
+K7's single product, the batched Fq12 product.
 
 Counterpart of ``snark_verifier_tpu/ops/tower.py``: the oracle tower of
 ``util/bn254.py`` over ``(..., 16)`` Montgomery limb tensors.  Fq2 = (c0, c1),
 Fq6 = (a0, a1, a2) of Fq2, Fq12 = (b0, b1) of Fq6, as plain tuples.
 Karatsuba products; Frobenius maps by host constants.
 
-``fq12_mul`` goes through ``tower_cuda.fq12_mul_flat``: kernel K7 on CUDA
-tensors, on CPU tensors the stacked Karatsuba below, whose 54 Montgomery
-products are one batched ``F.mont_mul``.  Every value stays reduced below p,
-so each result equals the JAX package's limb for limb.
+K7 (``csrc/tower.cu``) replaces ``snark_verifier_tpu/ops/tower_pallas.py``
+``_f12_mul_kernel`` (``fq12_mul_flat_pallas``), the product of every Miller
+loop step and every final-exponentiation step of the pairing.  On the H100
+the pairing runs those products inside two kernels of their own (the Miller
+loop and the final exponentiation, ``ops/pairing.py``), built on the same
+warp-wide product as ``fq12_mul_flat`` here, one warp per product.  What
+bounds it on the H100 and what the design does about it is in the source's
+header.
+
+``fq12_mul`` goes through the route ``fq12_mul_flat``, on the flat layout
+``(12, *batch, 16)`` of ``fq12_to_flat``: K7 on CUDA tensors, on CPU tensors
+``fq12_mul_flat_plain``, the stacked Karatsuba below with the plain
+Montgomery multiply, whose 54 products are one batched multiply.  Every
+value stays reduced below p, so the kernel, the plain version and the JAX
+package's products agree limb for limb.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
+from snark_verifier_tpu_torch import _build
+from snark_verifier_tpu_torch.config import use_kernel
 from snark_verifier_tpu_torch.ops import field as F
 from snark_verifier_tpu_torch.util import bn254
 
@@ -215,12 +231,39 @@ def fq12_mul_stacked(a, b, mul=_stacked_mul):
     return fq12_from_flat(c.reshape(12, *c.shape[3:]))
 
 
+def fq12_mul_flat_plain(x, y):
+    """Plain version of K7: flat Fq12 x flat Fq12 -> flat Fq12."""
+    def mul(a, b):
+        return F.mont_mul_plain(a, b, FQ)
+
+    return fq12_to_flat(fq12_mul_stacked(fq12_from_flat(x), fq12_from_flat(y), mul))
+
+
+def fq12_mul_flat(x, y):
+    """Flat Fq12 product (broadcasting over the batch).  CUDA tensors launch
+    K7 (one warp per product); CPU tensors take ``fq12_mul_flat_plain``."""
+    _build.check_limbs("fq12_mul_flat", x, y)
+    x, y = torch.broadcast_tensors(x, y)
+    if x.dim() < 2 or x.shape[0] != 12:
+        raise ValueError(f"fq12_mul_flat: expected (12, ..., 16) operands, got {tuple(x.shape)}")
+    if not use_kernel(x, y):
+        return fq12_mul_flat_plain(x, y)
+    n = math.prod(x.shape[1:-1])
+    a, b = _build.aligned(x), _build.aligned(y)
+    out = torch.empty_like(a)
+    _build.launch("svtpu_fq12_mul", a, a.data_ptr(), b.data_ptr(), out.data_ptr(), n, _build.field_arg(FQ))
+    if n:
+        fq12_mul_flat.launches += 1
+    return out
+
+
+fq12_mul_flat.launches = 0
+
+
 def fq12_mul(a, b):
     """Fq12 product: kernel K7 on CUDA tensors, ``fq12_mul_stacked`` on CPU
     tensors."""
-    from snark_verifier_tpu_torch.ops import tower_cuda
-
-    return fq12_from_flat(tower_cuda.fq12_mul_flat(fq12_to_flat(a), fq12_to_flat(b)))
+    return fq12_from_flat(fq12_mul_flat(fq12_to_flat(a), fq12_to_flat(b)))
 
 
 def fq12_sqr(a):

@@ -1,7 +1,7 @@
 """The port's aggregation path on the CPU: the k=20 outer aggregation snark
 verified with the Poseidon transcript and both of its accumulators decided
-(``entry.aggregation_entry``), with ``MEGA`` on (kernel K4's plain
-version); its small MSMs again with ``MEGA`` off (K8/K9's); and config 4's
+(``entry.aggregation_entry``), its small MSMs through kernel K4's plain
+version; those MSMs again through ``msm_windowed`` (K8/K9's); and config 4's
 fold (the port's copy of ``sdk/aggregation.aggregate_native``) followed by a
 decide, against the JAX package's native verifier, its native KZG decide and
 its ``aggregate_native``.
@@ -49,25 +49,24 @@ def outer_batch(fn_args):
 
 @pytest.fixture(scope="module")
 def outer_msms():
-    """(points, scalars, output) of each small MSM of the ``mega_on`` run."""
+    """(points, scalars, output) of each small MSM of the ``outer_run``."""
     return []
 
 
 @pytest.fixture(scope="module")
-def mega_on(outer_msms):
-    """The outer batch through ``entry.aggregation_entry`` with MEGA on (the
-    one-kernel scan) and the decide of both accumulators; its small MSMs
-    are recorded in ``outer_msms``."""
-    fused = M.msm_batched_fused
+def outer_run(outer_msms):
+    """The outer batch through ``entry.aggregation_entry`` (the one-kernel
+    scan) and the decide of both accumulators; its small MSMs are recorded
+    in ``outer_msms``."""
+    batched = M.msm_batched
 
     def recording(points, scalars):
-        out = fused(points, scalars)
+        out = batched(points, scalars)
         outer_msms.append((points, scalars, out))
         return out
 
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(MK, "MEGA", True)
-        mp.setattr(M, "msm_batched_fused", recording)
+        mp.setattr(M, "msm_batched", recording)
         fn, args = E.aggregation_entry(batch=len(ROWS), device="cpu")
         return fn(*outer_batch(args))
 
@@ -96,39 +95,38 @@ def test_outer_snark_fixture():
     assert params["device"].default == "cuda" and params["batch"].default == 8
 
 
-def test_outer_snark_accumulators_match_jax_native(mega_on, jax_outer):
+def test_outer_snark_accumulators_match_jax_native(outer_run, jax_outer):
     """The fresh accumulator and the one decoded from the instance limbs equal
     the JAX package's native verifier's; the outputs gain a leading axis of
     2; the JAX native decide accepts both."""
     fx, want = jax_outer
-    assert tuple(mega_on["lhs_x"].shape) == (2, len(ROWS), 16)
-    assert accumulators(mega_on, 0) == want
+    assert tuple(outer_run["lhs_x"].shape) == (2, len(ROWS), 16)
+    assert accumulators(outer_run, 0) == want
     assert all(jax_decide(fx.dk, *acc) for acc in want)
 
 
-def test_outer_snark_decides_and_rejects_mutation_and_limb_flip(mega_on):
+def test_outer_snark_decides_and_rejects_mutation_and_limb_flip(outer_run):
     """With both accumulators decided per proof, ``ok`` holds for the outer
     proof and is cleared by the mutated byte and by the flipped limb."""
-    assert mega_on["ok"].tolist() == [True, False, False]
+    assert outer_run["ok"].tolist() == [True, False, False]
 
 
-def test_outer_snark_mega_off_matches_mega_on(mega_on, outer_msms, monkeypatch):
+def test_outer_snark_mega_off_matches_mega_on(outer_run, outer_msms, monkeypatch):
     """The outer snark's small MSMs (36 and 3 terms per proof), on the inputs
-    the verify gave them, with ``MEGA`` off: the two-kernel form, never the
-    scan, gives the scan's points in affine form for every row whose points
-    are on the curve (the outer proof, the flipped limb; the mutated byte
-    makes a non-residue x).  So the verify's accumulators and ``ok`` do not
-    depend on ``MEGA``; chip_smoke.py runs the whole outer snark both ways
-    on the card."""
+    the verify gave them, through ``msm_windowed``: the two-kernel form,
+    never the scan, gives the scan's points in affine form for every row
+    whose points are on the curve (the outer proof, the flipped limb; the
+    mutated byte makes a non-residue x).  So K8/K9 compute K4's MSMs at the
+    outer snark's shape; chip_smoke.py holds the kernels against each other
+    on the card on the same run's inputs."""
     assert [tuple(s.shape[:-1]) for _, s, _ in outer_msms] == [(len(ROWS), 36), (len(ROWS), 3)]
-    monkeypatch.setattr(MK, "MEGA", False)
 
     def no_scan(*args, **kwargs):
-        raise AssertionError("MEGA off must not run the one-kernel scan")
+        raise AssertionError("msm_windowed must not run the one-kernel scan")
 
     monkeypatch.setattr(MK, "msm_scan", no_scan)
     for points, scalars, want in outer_msms:
-        got = C.g1_to_affine_ints(MK.msm_batched_fused(points, scalars))
+        got = C.g1_to_affine_ints(MK.msm_windowed(*M.scan_inputs(points, scalars)))
         assert [got[r] for r in (0, 2)] == [C.g1_to_affine_ints(want)[r] for r in (0, 2)]
 
 

@@ -1,4 +1,4 @@
-"""The port's G1 ops (snark_verifier_tpu_torch/ops/curve.py, curve_cuda.py)
+"""The port's G1 ops (snark_verifier_tpu_torch/ops/curve.py)
 against the JAX package's ops/curve.py (XLA path) and ops/curve_pallas.py
 (the CPU branch of g1_add_t / g1_double_t runs the Pallas kernel bodies),
 limb for limb, and the python-int oracle util/bn254."""
@@ -11,7 +11,6 @@ from snark_verifier_tpu.ops import curve as JC
 from snark_verifier_tpu.ops import curve_pallas as JCP
 from snark_verifier_tpu.util import bn254
 from snark_verifier_tpu_torch.ops import curve as C
-from snark_verifier_tpu_torch.ops import curve_cuda as CK
 from snark_verifier_tpu_torch.ops.convert import g1_from_numpy, g1_to_numpy
 
 N = 12
@@ -52,7 +51,7 @@ def test_g1_add_matches_jax_and_pallas_body(operands, second_level):
     a = jr if second_level else jp
     want_xla = JC._g1_add_xla(a, jq)
     assert_same_point(C.g1_add(g1_from_numpy(a, "cpu"), g1_from_numpy(jq, "cpu")), want_xla)
-    assert_same_point(CK.g1_add_plain(g1_from_numpy(a, "cpu"), g1_from_numpy(jq, "cpu")), want_xla)
+    assert_same_point(C.g1_add_plain(g1_from_numpy(a, "cpu"), g1_from_numpy(jq, "cpu")), want_xla)
     want_body = untransposed(JCP.g1_add_t(transposed(a), transposed(jq)))
     assert_same_point(C.g1_add(g1_from_numpy(a, "cpu"), g1_from_numpy(jq, "cpu")), want_body)
     if not second_level:

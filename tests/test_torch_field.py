@@ -1,4 +1,4 @@
-"""The port's field ops (snark_verifier_tpu_torch/ops/field.py, field_cuda.py)
+"""The port's field ops (snark_verifier_tpu_torch/ops/field.py)
 against the JAX package's ops/field.py and field_pallas.py on the CPU.
 
 Integer arithmetic: every comparison is exact (tolerance zero).  Inputs are
@@ -13,7 +13,6 @@ from snark_verifier_tpu.ops import field as JF
 from snark_verifier_tpu.ops import field_pallas as FP
 from snark_verifier_tpu.ops.limbs import NLIMB, int_to_limbs
 from snark_verifier_tpu_torch.ops import field as F
-from snark_verifier_tpu_torch.ops import field_cuda as FK
 from snark_verifier_tpu_torch.ops.convert import limbs_to_tensor, tensor_to_limbs
 
 SPECS = [(F.FQ, JF.FQ), (F.FR, JF.FR)]
@@ -89,12 +88,12 @@ def test_mont_mul_plain_column_paths_match_jax_and_ints(rows):
     COLUMN_LOOP_ROWS broadcast rows, multiply-adds from there), with a small
     operand broadcast against a large one either way round: K1's plain
     version against the JAX package and python ints."""
-    assert FK.COLUMN_LOOP_ROWS == 1024
+    assert F.COLUMN_LOOP_ROWS == 1024
     na, nb = rows
     a_vals = (edge_ints(F.FQ.modulus) + rand_ints(11, F.FQ.modulus, na))[:na]
     b_vals = (edge_ints(F.FQ.modulus)[::-1] + rand_ints(12, F.FQ.modulus, nb))[:nb]
     (ja, ta), (jb, tb) = both(F.FQ, a_vals), both(F.FQ, b_vals)
-    got = FK.mont_mul_plain(ta, tb, F.FQ)
+    got = F.mont_mul_plain(ta, tb, F.FQ)
     assert_same(got, JF.mont_mul(ja, jb, JF.FQ))
     n = max(na, nb)
     a_full, b_full = a_vals * (n // na), b_vals * (n // nb)
@@ -113,7 +112,7 @@ def test_mont_mul_plain_matches_pallas_kernel(monkeypatch):
         b_vals = [y for _ in vals for y in vals] + rand_ints(5, F.FQ.modulus, 36)
         (ja, ta), (jb, tb) = both(F.FQ, a_vals), both(F.FQ, b_vals)
         want = FP.mont_mul_pallas(ja, jb, JF.FQ)
-        assert_same(FK.mont_mul_plain(ta, tb, F.FQ), want)
+        assert_same(F.mont_mul_plain(ta, tb, F.FQ), want)
     finally:
         FP.mont_mul_pallas.clear_cache()
 
@@ -166,7 +165,7 @@ def test_pow_const_and_inv_match_jax_and_ints(specs, name):
         inv = F.inv(ta, spec)
         assert_same(inv, JF.inv(ja, jspec))
         assert list(spec.decode(inv).reshape(-1)) == [pow(v, spec.modulus - 2, spec.modulus) for v in vals]
-    assert FK.mont_pow.launches == 0
+    assert F.mont_pow.launches == 0
 
 
 def test_mont_pow_validates_its_exponent():
@@ -176,17 +175,17 @@ def test_mont_pow_validates_its_exponent():
     256-bit pieces of the same chain."""
     a = limbs_to_tensor(F.FR.encode([3]), "cpu")
     with pytest.raises(ValueError):
-        FK.mont_pow(a, -1, F.FR)
+        F.mont_pow(a, -1, F.FR)
     with pytest.raises(ValueError):
-        FK.mont_pow(a[..., :8], 3, F.FR)
-    assert torch.equal(FK.mont_pow(a, (1 << 256) - 1, F.FR), FK.mont_pow_plain(a, (1 << 256) - 1, F.FR))
+        F.mont_pow(a[..., :8], 3, F.FR)
+    assert torch.equal(F.mont_pow(a, (1 << 256) - 1, F.FR), F.mont_pow_plain(a, (1 << 256) - 1, F.FR))
     e = 1 << 256
-    got = FK.mont_pow(a, e, F.FR)
-    assert torch.equal(got, FK.mont_pow_plain(a, e, F.FR))
+    got = F.mont_pow(a, e, F.FR)
+    assert torch.equal(got, F.mont_pow_plain(a, e, F.FR))
     assert list(F.FR.decode(got)) == [pow(3, e, F.FR.modulus)]
-    assert FK.exponent_pieces((1 << 256) - 1) == [((1 << 256) - 1, 256)]  # one launch below 2^256
-    assert FK.exponent_pieces(e) == [(1, 1), (0, 256)]
-    assert FK.exponent_pieces((1 << 300) + 5) == [(1 << 44, 45), (5, 256)]
+    assert F.exponent_pieces((1 << 256) - 1) == [((1 << 256) - 1, 256)]  # one launch below 2^256
+    assert F.exponent_pieces(e) == [(1, 1), (0, 256)]
+    assert F.exponent_pieces((1 << 300) + 5) == [(1 << 44, 45), (5, 256)]
 
 
 def _fmul_eo_words(a, b, p, n0):

@@ -32,8 +32,8 @@ from snark_verifier_tpu.ops import curve_pallas as JCP
 from snark_verifier_tpu.ops import msm_pallas as MP
 from snark_verifier_tpu.util import bn254
 from snark_verifier_tpu_torch.ops import curve as C
-from snark_verifier_tpu_torch.ops import curve_cuda as CK
 from snark_verifier_tpu_torch.ops import field as F
+from snark_verifier_tpu_torch.ops import msm as M
 from snark_verifier_tpu_torch.ops import msm_cuda as MK
 from snark_verifier_tpu_torch.ops.convert import g1_from_numpy, ints_to_tensor
 
@@ -114,7 +114,7 @@ def double_groups(s, sets):
     """g1_double_group run by groups of DBL_GROUP lanes at once, in the same
     __syncwarp()s, each group on its own slot set: ``sets`` holds (base slot,
     the group's lane ids, role k = position).  Returns each lane's 2 p."""
-    group = CK.DBL_GROUP
+    group = C.DBL_GROUP
     assert all(len(lanes) == group for _, lanes in sets)
     # level 1: {y y, y z, z z, x y} on lanes 0-3 (p in slots 0-2 of the set)
     ia, ib = (1, 1, 2, 0), (1, 2, 2, 1)
@@ -160,7 +160,7 @@ def double_group_model(p):
     """2 p as the DBL_GROUP lanes of g1_double_group compute it, and the
     words each lane stores (lane k: words k and k + DBL_GROUP).  Returns
     the stored (x, y, z)."""
-    group = CK.DBL_GROUP
+    group = C.DBL_GROUP
     s = Slots(DBL_SLOTS, p)  # p 0-2, level 1's products 3-6, level 2's operands 7-10, its products 11-14
     results = double_groups(s, [(0, range(group))])
     out = [[None] * NW for _ in range(3)]
@@ -206,7 +206,7 @@ def test_double_group_schedule_matches_plain_and_jax(doubling_inputs, kind):
     written twice or read before its __syncwarp."""
     jp = doubling_inputs[kind]
     pt = g1_from_numpy(jp, "cpu")
-    plain = CK.g1_double_plain(pt)
+    plain = C.g1_double_plain(pt)
     want_jax = JCP.g1_double_t(tuple(np.asarray(c).T for c in jp))
     for c, w in zip(plain, want_jax):
         np.testing.assert_array_equal(c.numpy(), np.asarray(w).T.astype(np.int64))
@@ -226,21 +226,21 @@ def test_double_grid_serves_each_point_once_and_validates():
     """K3's map: thread t of block b serves doubling (b * block + t) // 4
     and its limb pairs t % 4 and t % 4 + 4; every word of every live
     doubling once, no block wholly past the end."""
-    group = CK.DBL_GROUP
+    group = C.DBL_GROUP
     for n in (1, 31, 32, 288, 8192, 32760):
-        grid = CK.dbl_grid(n)
-        thread = torch.arange(grid * CK.DBL_BLOCK)
+        grid = C.dbl_grid(n)
+        thread = torch.arange(grid * C.DBL_BLOCK)
         point, lane = thread // group, thread % group
         live = point < n
         pairs = torch.stack([lane + h * group for h in range(NW // group)], -1)[live]  # (live threads, 2)
         served = point[live].unsqueeze(-1) * NW + pairs
         assert torch.equal(served.reshape(-1).sort().values, torch.arange(n * NW))
-        assert (grid - 1) * CK.DBL_BLOCK < n * group and CK.DBL_BLOCK % 32 == 0
+        assert (grid - 1) * C.DBL_BLOCK < n * group and C.DBL_BLOCK % 32 == 0
     g = C.g1_from_affine_ints([None, (1, 2)], "cpu")
     with pytest.raises(ValueError):
-        CK.g1_double(C.G1(g.x, g.y.int(), g.z))
+        C.g1_double(C.G1(g.x, g.y.int(), g.z))
     with pytest.raises(ValueError):
-        CK.g1_double(C.G1(*(c[..., :8] for c in g)))
+        C.g1_double(C.G1(*(c[..., :8] for c in g)))
 
 
 # ---- K8: msm_window_kernel --------------------------------------------------
@@ -341,7 +341,7 @@ def test_window_group_schedule_matches_plain(n):
     batch = 3
     pts = [[bn254.g1_mul(bn254.G1_GEN, int(rng.integers(1, 1 << 62))) for _ in range(n)] for _ in range(batch)]
     g = C.g1_from_affine_ints([p for row in pts for p in row], "cpu")
-    table = MK.build_tables(C.G1(*(c.reshape(batch, n, 16).transpose(0, 1) for c in g))).contiguous()
+    table = M.build_tables(C.G1(*(c.reshape(batch, n, 16).transpose(0, 1) for c in g))).contiguous()
     digits = torch.as_tensor(rng.integers(-8, 9, (batch, n)), dtype=torch.int64)
     digits[0, 0], digits[1, 0], digits[2, -1] = -3, 0, 8
     if n > 1:
@@ -440,7 +440,7 @@ def horner_group_model(acc, contrib, live=True):
     word): value} as the lanes store it (nothing where the group is past the
     batch's end)."""
     group = range(MK.WINDOW_GROUP)
-    half = CK.DBL_GROUP
+    half = C.DBL_GROUP
     sets = [(0, range(half)), (ADD_SLOTS, range(half, 2 * half))]
     s = Slots(ADD_SLOTS + DBL_SLOTS)
     q = {k: [words(c)[k] for c in contrib] for k in group}  # registers, off the chain
@@ -501,7 +501,7 @@ def horner_rows():
     acc = rows(proj(pts(3)))
     t = C.G1(*(ints_to_tensor([a[c] for a in acc], "cpu") for c in range(3)))
     for _ in range(4):
-        t = CK.g1_double_plain(t)
+        t = C.g1_double_plain(t)
     sixteen = list(zip(*(to_ints(c) for c in t)))
     cases["contrib_16_acc"] = (acc, sixteen)
     cases["contrib_minus_16_acc"] = (acc, [(x, fsub(0, y), z) for x, y, z in sixteen])
@@ -583,4 +583,4 @@ def test_horner_grid_stores_each_proof_once():
         assert bool((loaded < batch).all()) and bool((loaded >= 0).all())
         served = (group[live] * NW + lane[live]).sort().values
         assert torch.equal(served, torch.arange(batch * NW))
-        assert MK.WINDOW_BLOCK % 32 == 0 and MK.WINDOW_GROUP == 2 * CK.DBL_GROUP == NW
+        assert MK.WINDOW_BLOCK % 32 == 0 and MK.WINDOW_GROUP == 2 * C.DBL_GROUP == NW

@@ -47,7 +47,7 @@ def test_signed_digits_match_pallas():
     rng = np.random.default_rng(3)
     vals = [int.from_bytes(rng.bytes(32), "little") % bn254.R for _ in range(33)] + [0, 1, bn254.R - 1]
     limbs = ints_to_limbs(vals)
-    got = MK.signed_digits(limbs_to_tensor(limbs, "cpu")).numpy()
+    got = M.signed_digits(limbs_to_tensor(limbs, "cpu")).numpy()
     np.testing.assert_array_equal(got, np.asarray(MP.signed_digits(limbs)))
     assert got.min() >= -8 and got.max() <= 8
     for s, row in zip(vals, got):
@@ -79,7 +79,7 @@ def test_msm_fused_matches_jax_fused():
     """9 signed windows (32-bit scalars), the JAX fused MSM's test hook, at
     B = 3 proofs of n = 8 terms."""
     jg, scal, want, jax_out, _ = fused_case()
-    got = MK.msm_batched_fused(g1_from_numpy(jg, "cpu"), limbs_to_tensor(scal, "cpu"), 9)
+    got = M.msm_batched(g1_from_numpy(jg, "cpu"), limbs_to_tensor(scal, "cpu"), 9)
     assert C.g1_to_affine_ints(got) == jax_out == want
 
 
@@ -114,6 +114,6 @@ def test_msm_full_windows_oracle_and_scalar_mul():
     assert C.g1_to_affine_ints(got) == [
         bn254.g1_mul(p, limbs_to_int(k)) for p, k in zip(C.g1_to_affine_ints(one), scal[:, 1])
     ]
-    table = MK.build_tables(C.G1(*(c.transpose(0, 1) for c in pts)))
+    table = M.build_tables(C.G1(*(c.transpose(0, 1) for c in pts)))
     assert tuple(table.shape) == (MK.NTAB, 3, 3, 2, 16)
-    assert C.g1_to_affine_ints(MK.msm_scan(table, MK.signed_digits(s))) == want
+    assert C.g1_to_affine_ints(MK.msm_scan(table, M.signed_digits(s))) == want

@@ -19,7 +19,6 @@ from snark_verifier_tpu.ops import msm as JM
 from snark_verifier_tpu.ops.limbs import ints_to_limbs
 from snark_verifier_tpu.util import bn254
 from snark_verifier_tpu_torch.ops import curve as C
-from snark_verifier_tpu_torch.ops import curve_cuda as CK
 from snark_verifier_tpu_torch.ops import msm as M
 from snark_verifier_tpu_torch.ops import msm_cuda as MK
 from snark_verifier_tpu_torch.ops.convert import g1_from_numpy, g1_to_numpy, ints_to_tensor
@@ -72,11 +71,11 @@ def test_window_digits_match_jax(window, signed):
     nwin = (256 + window - 1) // window
     t = ints_to_tensor(scalars, "cpu")
     if signed:
-        got, want = M._signed_window_digits(t, window, nwin), JM._signed_window_digits(jnp.asarray(limbs), window, nwin)
+        got, want = M.signed_digits(t, window, nwin), JM._signed_window_digits(jnp.asarray(limbs), window, nwin)
         for s, row in zip(scalars, got.tolist()):
             assert sum(d << (window * w) for w, d in enumerate(row)) == s
     else:
-        got, want = M._window_digits(t, window, nwin), JM._window_digits(jnp.asarray(limbs), window, nwin, 1 << window)
+        got, want = M.window_digits(t, window, nwin), JM._window_digits(jnp.asarray(limbs), window, nwin, 1 << window)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want).astype(np.int64))
 
 
@@ -147,10 +146,10 @@ def test_g1_add_select_plain_matches_jax_limb_for_limb():
     want = JC.g1_add_select(jnp.asarray(cond), jp, jq)
     p, q, c = g1_from_numpy(jp, "cpu"), g1_from_numpy(jq, "cpu"), torch.as_tensor(cond)
     assert_limbs(C.g1_add_select(c, p, q), want)
-    assert_limbs(CK.g1_add_select_plain(c, p, q), want)
-    assert CK.g1_add_select.launches == 0
+    assert_limbs(C.g1_add_select_plain(c, p, q), want)
+    assert C.g1_add_select.launches == 0
     with pytest.raises(ValueError):
-        CK.g1_add_select(c.long(), p, q)
+        C.g1_add_select(c.long(), p, q)
 
 
 def test_tree_sum_matches_jax_limb_for_limb():
@@ -221,7 +220,7 @@ def test_msm_serial_chunked_orders_its_chunks(monkeypatch, n, window, signed, ch
     g, s = C.g1_from_affine_ints(pts, "cpu"), ints_to_tensor(scalars, "cpu")
     calls, horners = [], []
     monkeypatch.setattr(M, "_bucket_totals", lambda *a: calls.append(a[1].shape[0]) or row_stand_in(*a))
-    monkeypatch.setattr(M, "horner_combine", lambda t, w: horners.append(t.x.shape) or horner_stand_in(t, w))
+    monkeypatch.setattr(MK, "horner_combine", lambda t, w: horners.append(t.x.shape) or horner_stand_in(t, w))
     want = M.msm_serial(g, s, window, signed)
     assert calls == [256 // window] and horners == [(1, 256 // window, 16)]
     calls.clear()

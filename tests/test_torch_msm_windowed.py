@@ -1,6 +1,6 @@
 """The port's two-kernel small MSM (kernels K8 ``msm_window`` and K9
-``msm_horner`` in snark_verifier_tpu_torch/ops/msm_cuda.py, run when
-``MEGA`` is off) and the plain version of K4, their composition, against
+``msm_horner`` in snark_verifier_tpu_torch/ops/msm_cuda.py, composed by
+``msm_windowed``) and the plain version of K4, their composition, against
 the JAX package's ``_window_call`` and ``_horner_call`` (their CPU branch),
 its ``msm_batched_fused`` and the python-int oracle, on the CPU.
 
@@ -20,9 +20,10 @@ from test_torch_msm import case, fused_case
 from snark_verifier_tpu.ops import msm_pallas as MP
 from snark_verifier_tpu.util import bn254
 from snark_verifier_tpu_torch.ops import curve as C
+from snark_verifier_tpu_torch.ops import msm as M
 from snark_verifier_tpu_torch.ops import msm_cuda as MK
 from snark_verifier_tpu_torch.ops.convert import g1_from_numpy, limbs_to_tensor
-from snark_verifier_tpu_torch.ops.curve_cuda import g1_add_plain
+from snark_verifier_tpu_torch.ops.curve import g1_add_plain
 
 B, N = 3, 3
 B_PAD = 128  # the JAX package's lane tier on the CPU
@@ -36,7 +37,7 @@ def tables():
     pts = [[None if (b, i) == (1, 2) else bn254.g1_mul(bn254.G1_GEN, int(rng.integers(1, 1 << 62)))
             for i in range(N)] for b in range(B)]
     g = C.g1_from_affine_ints([p for row in pts for p in row], "cpu")
-    table = MK.build_tables(C.G1(*(c.reshape(B, N, 16).transpose(0, 1) for c in g)))
+    table = M.build_tables(C.G1(*(c.reshape(B, N, 16).transpose(0, 1) for c in g)))
     digits = torch.as_tensor(rng.integers(-8, 9, (B, N)), dtype=torch.int64)
     digits[0, 0], digits[1, 1], digits[2, 2] = 0, 8, -8
     return pts, table, digits
@@ -110,7 +111,7 @@ def test_scan_plain_matches_jax_window_horner_composition():
     for _ in range(MK.NTAB - 2):
         entries.append(g1_add_plain(entries[-1], p))
     table = torch.stack([torch.stack(list(t)) for t in entries])
-    digits = MK.signed_digits(limbs_to_tensor(scal, "cpu"))[..., :9]
+    digits = M.signed_digits(limbs_to_tensor(scal, "cpu"))[..., :9]
     got = MK.msm_scan(table, digits)
     for c, w in zip(got, jax_proj):
         np.testing.assert_array_equal(c.numpy(), w.astype(np.int64))
@@ -135,26 +136,25 @@ def test_scan_validates_and_picks_its_geometry(tables):
     assert MK.scan_geometry(1820, 132, 1) == (1, 1820)
 
 
-def test_msm_fused_mega_off_matches_jax_fused(monkeypatch):
-    """``msm_batched_fused`` with ``MEGA`` off (K8/K9's plain versions) at
-    9 signed windows, B = 3 proofs of n = 8 terms (test_torch_msm.py's case)
-    against the JAX package's fused MSM, which runs the same two kernels on
-    the CPU, and the oracle, in affine form."""
-    monkeypatch.setattr(MK, "MEGA", False)
+def test_msm_fused_mega_off_matches_jax_fused():
+    """``msm_windowed`` (K8/K9's plain versions) on ``msm_batched``'s
+    operands at 9 signed windows, B = 3 proofs of n = 8 terms
+    (test_torch_msm.py's case) against the JAX package's fused MSM, which
+    runs the same two kernels on the CPU, and the oracle, in affine form."""
     jg, scal, want, jax_out, _ = fused_case()
-    got = MK.msm_batched_fused(g1_from_numpy(jg, "cpu"), limbs_to_tensor(scal, "cpu"), 9)
+    got = MK.msm_windowed(*M.scan_inputs(g1_from_numpy(jg, "cpu"), limbs_to_tensor(scal, "cpu"), 9))
     assert C.g1_to_affine_ints(got) == jax_out == want
 
 
 @pytest.mark.parametrize("n", [1, 3])
-def test_msm_windowed_all_windows_matches_scan_and_oracle(monkeypatch, n):
-    """All 64 windows at B = 2: ``MEGA`` off and on give the oracle's MSM
-    (one term: a scalar multiplication)."""
+def test_msm_windowed_all_windows_matches_scan_and_oracle(n):
+    """All 64 windows at B = 2: ``msm_windowed`` and ``msm_batched`` (K4's
+    plain version) give the oracle's MSM (one term: a scalar
+    multiplication)."""
     jg, scal, want = case(60 + n, 2, n)
     pts, s = g1_from_numpy(jg, "cpu"), limbs_to_tensor(scal, "cpu")
-    for mega in (False, True):
-        monkeypatch.setattr(MK, "MEGA", mega)
-        assert C.g1_to_affine_ints(MK.msm_batched_fused(pts, s)) == want
+    assert C.g1_to_affine_ints(MK.msm_windowed(*M.scan_inputs(pts, s))) == want
+    assert C.g1_to_affine_ints(M.msm_batched(pts, s)) == want
 
 
 def test_window_and_horner_validate_and_route_cpu_to_plain(tables):

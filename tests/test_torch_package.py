@@ -1,10 +1,12 @@
 """Package-level properties of the port (snark_verifier_tpu_torch): it
 imports neither JAX nor the JAX package, its copies of JAX-free modules of
-the JAX package equal their originals, its kernel wrappers route by device
-and validate their inputs, the kernel build goes to the ignored build
+the JAX package equal their originals, its kernel wrappers route by device,
+validate their inputs and launch through one helper, the modules of its
+kernel layer import one way, the kernel build goes to the ignored build
 directory, and chip_smoke.py refuses to run without a CUDA card."""
 
 import ast
+import contextlib
 import os
 import re
 import shutil
@@ -20,12 +22,10 @@ from snark_verifier_tpu_torch import _build
 from snark_verifier_tpu_torch.config import use_kernel
 from snark_verifier_tpu_torch.ops import convert
 from snark_verifier_tpu_torch.ops import curve as C
-from snark_verifier_tpu_torch.ops import curve_cuda as CK
 from snark_verifier_tpu_torch.ops import field as F
-from snark_verifier_tpu_torch.ops import field_cuda as FK
 from snark_verifier_tpu_torch.ops import msm_cuda as MK
 from snark_verifier_tpu_torch.ops import pairing as PAIR
-from snark_verifier_tpu_torch.ops import tower_cuda as TC
+from snark_verifier_tpu_torch.ops import tower as T
 
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "snark_verifier_tpu_torch"
@@ -180,27 +180,27 @@ def test_build_command_targets_the_ignored_build_dir():
 
 def test_wrappers_route_cpu_tensors_to_plain_and_validate():
     a = convert.limbs_to_tensor(F.FQ.encode([3, 5]), "cpu")
-    wrappers = (FK.mont_mul, FK.mont_pow, CK.g1_add, CK.g1_double, MK.msm_scan, CK.g1_add_select, MK.horner_combine,
-                TC.fq12_mul_flat, MK.msm_window, MK.msm_horner, PAIR.miller_loop_pair, PAIR.final_exponentiation)
+    wrappers = (F.mont_mul, F.mont_pow, C.g1_add, C.g1_double, MK.msm_scan, C.g1_add_select, MK.horner_combine,
+                T.fq12_mul_flat, MK.msm_window, MK.msm_horner, PAIR.miller_loop_pair, PAIR.final_exponentiation)
     launches = [w.launches for w in wrappers]
-    assert torch.equal(FK.mont_mul(a, a, F.FQ), FK.mont_mul_plain(a, a, F.FQ))
-    assert torch.equal(FK.mont_pow(a, 7, F.FQ), FK.mont_pow_plain(a, 7, F.FQ))
+    assert torch.equal(F.mont_mul(a, a, F.FQ), F.mont_mul_plain(a, a, F.FQ))
+    assert torch.equal(F.mont_pow(a, 7, F.FQ), F.mont_pow_plain(a, 7, F.FQ))
     g = C.g1_from_affine_ints([None, (1, 2)], "cpu")
-    assert all(torch.equal(x, y) for x, y in zip(CK.g1_add(g, g), CK.g1_add_plain(g, g)))
-    assert all(torch.equal(x, y) for x, y in zip(CK.g1_double(g), CK.g1_double_plain(g)))
+    assert all(torch.equal(x, y) for x, y in zip(C.g1_add(g, g), C.g1_add_plain(g, g)))
+    assert all(torch.equal(x, y) for x, y in zip(C.g1_double(g), C.g1_double_plain(g)))
     m = torch.tensor([True, False])
-    assert all(torch.equal(x, y) for x, y in zip(CK.g1_add_select(m, g, g), CK.g1_add_select_plain(m, g, g)))
+    assert all(torch.equal(x, y) for x, y in zip(C.g1_add_select(m, g, g), C.g1_add_select_plain(m, g, g)))
     tot = C.G1(*(c.unsqueeze(0) for c in g))
     assert all(torch.equal(x, y) for x, y in zip(MK.horner_combine(tot, 3), MK.horner_combine_plain(tot, 3)))
     f = torch.cat([a[:1]] * 12).reshape(12, 1, 16)
-    assert torch.equal(TC.fq12_mul_flat(f, f), TC.fq12_mul_flat_plain(f, f))
+    assert torch.equal(T.fq12_mul_flat(f, f), T.fq12_mul_flat_plain(f, f))
     assert [w.launches for w in wrappers] == launches
     with pytest.raises(ValueError):
-        FK.mont_mul(a.int(), a, F.FQ)
+        F.mont_mul(a.int(), a, F.FQ)
     with pytest.raises(ValueError):
-        FK.mont_mul(a[..., :8], a[..., :8], F.FQ)
+        F.mont_mul(a[..., :8], a[..., :8], F.FQ)
     with pytest.raises(ValueError):
-        FK.mont_pow(a, -1, F.FQ)
+        F.mont_pow(a, -1, F.FQ)
     with pytest.raises(ValueError):
         MK.horner_combine(tot, 0)
     with pytest.raises(ValueError):
@@ -223,35 +223,6 @@ def test_convert_round_trips_jax_side_numpy():
     assert F.FR.decode(convert.ints_to_tensor([7, 9], "cpu")).tolist() == [F.FR.from_mont_int(7), F.FR.from_mont_int(9)]
 
 
-def test_mega_is_read_at_every_call(monkeypatch):
-    """``msm_cuda.MEGA`` picks the one-kernel scan (K4) or the two-kernel
-    form (K8/K9) at each call of ``msm_batched_fused``, not at import; it
-    starts from SVTPU_TORCH_MSM_MEGA ("1" unless set)."""
-    from snark_verifier_tpu_torch.util import bn254
-
-    calls = []
-    monkeypatch.setattr(MK, "msm_scan", lambda *a: calls.append("scan") or MK.msm_scan_plain(*a))
-    monkeypatch.setattr(MK, "msm_window", lambda *a: calls.append("window") or MK.msm_window_plain(*a))
-    g = C.g1_from_affine_ints([(1, 2), None], "cpu")
-    pts = C.G1(*(c.reshape(1, 2, 16) for c in g))
-    scalars = convert.ints_to_tensor([3, 5], "cpu").reshape(1, 2, 16)
-    for mega in (True, False, True):
-        calls.clear()
-        monkeypatch.setattr(MK, "MEGA", mega)
-        assert C.g1_to_affine_ints(MK.msm_batched_fused(pts, scalars, 1)) == [bn254.g1_mul((1, 2), 3)]
-        assert calls == (["scan"] if mega else ["window"])
-    env = _env()
-    env.pop("SVTPU_TORCH_MSM_MEGA", None)
-    for value, want in ((None, True), ("0", False)):
-        if value is not None:
-            env["SVTPU_TORCH_MSM_MEGA"] = value
-        proc = subprocess.run(
-            [sys.executable, "-c", "from snark_verifier_tpu_torch.ops import msm_cuda; print(msm_cuda.MEGA)"],
-            capture_output=True, text=True, env=env, cwd=REPO, timeout=120,
-        )
-        assert proc.stdout.strip() == str(want), proc.stderr
-
-
 def test_device_check_accepts_the_default_cuda_device():
     """``build_verifier``/``build_batch_decider`` default to "cuda", while
     tensors created there report "cuda:0": the input check takes a device
@@ -264,3 +235,88 @@ def test_device_check_accepts_the_default_cuda_device():
     assert on_device(cuda0, torch.device("cuda")) and on_device(cuda1, torch.device("cuda"))
     assert on_device(cuda0, torch.device("cuda", 0)) and not on_device(cuda1, torch.device("cuda", 0))
     assert not on_device(torch.zeros(1), torch.device("cuda")) and on_device(torch.zeros(1), torch.device("cpu"))
+
+
+# The kernel layer: every module of ops/, and the two it launches through.
+LAYER = sorted(f"ops/{p.name}" for p in (PACKAGE / "ops").glob("*.py")) + ["_build.py", "config.py"]
+
+
+def _module_path(name: str) -> Path | None:
+    """The file of a package module name, or None when it is not one."""
+    rel = Path(*name.split(".")[1:])
+    for path in (PACKAGE / rel.with_suffix(".py"), PACKAGE / rel / "__init__.py"):
+        if path.is_file():
+            return path
+    return None
+
+
+def _package_imports(path: Path) -> tuple[set[str], list[str]]:
+    """The package modules a file imports at its top level, and those it
+    imports anywhere below it (inside a function, a class or a block)."""
+    tree = ast.parse(path.read_text())
+    top, nested = set(), []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names = [f"{node.module}.{a.name}" if _module_path(f"{node.module}.{a.name}") else node.module
+                     for a in node.names]
+        else:
+            continue
+        names = [n for n in names if n.split(".")[0] == PACKAGE.name]
+        (top.update if node in tree.body else nested.extend)(names)
+    return top, nested
+
+
+@pytest.mark.parametrize("module", LAYER)
+def test_kernel_layer_imports_point_one_way(module):
+    """No function-level import of the package; the module lies on no cycle
+    of the package's top-level imports; ``msm_cuda`` (the MSM kernels)
+    never reaches ``msm`` (the MSM algorithms above it); and only
+    ``_build.launch`` enters a device and calls the kernel library."""
+    name = f"{PACKAGE.name}.{module[:-3].replace('/', '.')}".removesuffix(".__init__")
+    path = PACKAGE / module
+    top, nested = _package_imports(path)
+    assert nested == [], f"{module} imports {nested} inside a function"
+    reached, todo = set(), list(top)
+    while todo:
+        dep = todo.pop()
+        if dep not in reached and _module_path(dep):
+            reached.add(dep)
+            todo.extend(_package_imports(_module_path(dep))[0])
+    assert name not in reached, f"{module} imports itself back through {sorted(reached)}"
+    if module == "ops/msm_cuda.py":
+        assert f"{PACKAGE.name}.ops.msm" not in reached
+    if module != "_build.py":
+        text = path.read_text()
+        assert "library()" not in text and "torch.cuda.device(" not in text
+
+
+def test_launch_raises_on_a_failed_launch(monkeypatch):
+    """``_build.launch`` calls the entry point with the stream of the given
+    tensor's device last, inside that device, and raises with the entry's
+    name and the CUDA error's text when it returns a non-zero code."""
+
+    class FakeLibrary:
+        calls = []
+
+        def svtpu_ok(self, *args):
+            self.calls.append(args)
+            return 0
+
+        def svtpu_bad(self, *args):
+            self.calls.append(args)
+            return 700
+
+        def svtpu_error_string(self, code):
+            return b"an illegal memory access was encountered"
+
+    lib, devices = FakeLibrary(), []
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(_build, "stream_of", lambda t: "stream")
+    monkeypatch.setattr(torch.cuda, "device", lambda d: devices.append(d) or contextlib.nullcontext())
+    like = torch.zeros(2, 16, dtype=torch.int64)
+    assert _build.launch("svtpu_ok", like, 1, 2) is None
+    with pytest.raises(RuntimeError, match=r"svtpu_bad launch failed: cuda error 700 \(an illegal memory access"):
+        _build.launch("svtpu_bad", like, 3)
+    assert lib.calls == [(1, 2, "stream"), (3, "stream")] and devices == [like.device] * 2

@@ -16,7 +16,6 @@ from snark_verifier_tpu.ops import tower_pallas as JTP
 from snark_verifier_tpu.util import bn254
 from snark_verifier_tpu_torch.ops import field as F
 from snark_verifier_tpu_torch.ops import tower as T
-from snark_verifier_tpu_torch.ops import tower_cuda as TC
 
 B = 4
 
@@ -102,10 +101,10 @@ def test_fq12_mul_matches_pallas_cpu_branch_and_oracle(values):
     xa, xb = JT.fq12_to_flat(a), JT.fq12_to_flat(b)
     want = JTP.fq12_mul_flat_pallas(xa, xb)
     ta, tb = to_torch(xa), to_torch(xb)
-    got = TC.fq12_mul_flat(ta, tb)
+    got = T.fq12_mul_flat(ta, tb)
     assert_same(got, want)
-    assert_same(TC.fq12_mul_flat_plain(ta, tb), want)
-    assert TC.fq12_mul_flat.launches == 0  # CPU tensors never launch the kernel
+    assert_same(T.fq12_mul_flat_plain(ta, tb), want)
+    assert T.fq12_mul_flat.launches == 0  # CPU tensors never launch the kernel
 
     def ints(flat, i):
         v = F.FQ.decode(flat[:, i])
@@ -118,9 +117,9 @@ def test_fq12_mul_matches_pallas_cpu_branch_and_oracle(values):
 def test_fq12_mul_flat_validates():
     x = torch.zeros(12, 2, 16, dtype=torch.int64)
     with pytest.raises(ValueError):
-        TC.fq12_mul_flat(x[:6], x[:6])
+        T.fq12_mul_flat(x[:6], x[:6])
     with pytest.raises(ValueError):
-        TC.fq12_mul_flat(x.int(), x.int())
+        T.fq12_mul_flat(x.int(), x.int())
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -1,4 +1,4 @@
-"""Times the two ways snark_verifier_tpu_torch.ops.field_cuda._columns forms
+"""Times the two ways snark_verifier_tpu_torch.ops.field._columns forms
 the schoolbook column sums of its CPU plain Montgomery product (sliding
 windows below COLUMN_LOOP_ROWS rows, 16 shifted multiply-adds from there) on
 one CPU thread, from 1 to 32768 rows, and checks that they agree.  The
@@ -15,15 +15,15 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from snark_verifier_tpu_torch.ops import field_cuda as FK  # noqa: E402
+from snark_verifier_tpu_torch.ops import field as F  # noqa: E402
 from snark_verifier_tpu_torch.ops.field import NLIMB  # noqa: E402
 
 PATHS = {"windows": 1 << 62, "loop": 0}  # COLUMN_LOOP_ROWS that selects each path
 
 
 def columns(path, a, b, ncols):
-    FK.COLUMN_LOOP_ROWS = PATHS[path]
-    return FK._columns(a, b, ncols)
+    F.COLUMN_LOOP_ROWS = PATHS[path]
+    return F._columns(a, b, ncols)
 
 
 def best_us(path, a, b, ncols, reps):
