@@ -50,15 +50,21 @@ of both its accumulators) and config 4's aggregation fold:
    7 hash lengths and at 0, 135, 136 and 137 bytes, on expanded and rank-2
    inputs, against the python-int oracle on three rows a length, its device
    time per launch at each verify length and one row's launch less an empty
-   one;
+   one; K12 (field add, sub, neg, the u256 reduction and the modulus check,
+   one launch a call) at 1, 8 and 1820 rows of edge values (0, 1, p - 1, p,
+   p + 1, 2p, 5p, 2^256 - 1, ...) and random 256-bit rows in Fq and Fr, and
+   at 1820 rows against a broadcast row both ways, an expanded row and a
+   strided column, its call and device time per launch, one element's
+   launch less an empty one, and the host aten ops of one call beside the
+   plain version's;
 4. slice: 1820 proofs (4 unique ones tiled, 2 rows with a corrupted
    commitment, 1 row with a wrong instance) from the data-file fixture;
    accumulators equal the native verifier's, ``ok`` False exactly on the
    corrupted rows, K1-K4 and ``mont_pow`` launched by the run (at most 230
    K1 launches, 6 K2 and 8 K3 launches, 7 K11 launches (one per hash), no
-   K10), and the host pairing oracle decides a good and the
-   wrong-instance accumulator; warm time, proofs/s, peak memory, and a
-   torch.profiler breakdown of one warm verify;
+   K10, K12 launches by op as ``K12_CALLS``), and the host pairing oracle
+   decides a good and the wrong-instance accumulator; warm time, proofs/s,
+   peak memory, and a torch.profiler breakdown of one warm verify;
 5. SHPLONK through the same code at 64 proofs;
 6. decide: ``entry.decide_entry`` verifies the 1820-proof batch and gives
    its decider (``build_batch_decider``), accumulators and seeded fold
@@ -67,7 +73,7 @@ of both its accumulators) and config 4's aggregation fold:
    ``mont_pow``, K2, K5, K6 and K7's two pairing kernels launched by it (one
    launch of each per pairing check, no single Fq12 product, one K6 launch
    for both MSMs, at most 16 K1 and 2 ``mont_pow`` launches, 62 K5 and 34
-   K2 launches); warm time, verified proofs/s (verify + decide), peak
+   K2 launches, no K12); warm time, verified proofs/s (verify + decide), peak
    memory, and its profile;
    ``build_verifier(decide_dk=...)`` on 8 proofs equal to the host oracle;
 7. large MSM: ``msm_serial`` at 2^16 (window 8) and 2^20 (window 11,
@@ -76,18 +82,19 @@ of both its accumulators) and config 4's aggregation fold:
    compressed point with x >= p in one row, a non-residue x in another, a
    wrong instance in a third); accumulators equal the native verifier's,
    ``ok`` False exactly on the two corrupted rows, K1-K4 launched, one K10
-   launch per permutation (14), fewer than 400 K1 launches and no K11; warm time,
+   launch per permutation (14), fewer than 400 K1 launches, no K11 and K12
+   launches by op as ``K12_CALLS``; warm time,
    proofs/s, peak memory, K1 launches, and a profile with the share of the
    Poseidon permutations and point reads in device time and host ops;
 9. aggregation: ``entry.aggregation_entry`` (the k=20 outer snark at B=8,
    both accumulators decided per proof): both accumulators equal the native
    verifier's, ``ok`` all True, a mutated proof byte and a flipped instance
    limb clear it, 8 K3 launches, one K4 launch per small MSM and none of K8
-   or K9, K10 launched; warm times and a profile; then K8 and K9 against
-   their plain versions, and K4 against its plain version and K8/K9
-   (``msm_windowed``), bit for bit, on K4's operands of that run's first
-   small MSM (the kernels line reports K8/K9's times and bounds at this
-   shape);
+   or K9, K10 launched, K12 launches by op as ``K12_CALLS``; warm times and a
+   profile; then K8 and K9 against their plain versions, and K4 against its
+   plain version and K8/K9 (``msm_windowed``), bit for bit, on K4's operands
+   of that run's first small MSM (the kernels line reports K8/K9's times and
+   bounds at this shape);
 10. config 4: the port's ``aggregate_native`` folds the four Poseidon
    snarks on the host, the card decides the fold (True) and decodes its 16
    instance limbs back to it;
@@ -115,7 +122,8 @@ of both its accumulators) and config 4's aggregation fold:
    ranks to the unsharded results, within 300 s.
 
 On every path, each ``field.pow_const``/``inv`` must be one ``mont_pow``
-launch (``count_launches``).
+launch, and each call of ``field.add``, ``sub``, ``neg``, ``reduce_u256``
+or ``lt_modulus`` on a non-empty batch one K12 launch (``count_launches``).
 
 Every failure raises, so the exit code is non-zero.  The last stdout line
 is ``{"ok": true, "device": {...}}``; before it, a JSON line with phases
@@ -131,6 +139,7 @@ without one).
 from __future__ import annotations
 
 import json
+import math
 import random
 import re
 import statistics
@@ -163,6 +172,11 @@ KERNELS = {  # name -> (source, TPU kernel replaced)
     "final_exp": ("snark_verifier_tpu_torch/csrc/tower.cu", "snark_verifier_tpu/ops/tower_pallas.py:97"),
     "poseidon_perm": ("snark_verifier_tpu_torch/csrc/poseidon.cu", "none (XLA: snark_verifier_tpu/ops/poseidon.py:168)"),
     "keccak256": ("snark_verifier_tpu_torch/csrc/keccak.cu", "none (XLA: snark_verifier_tpu/ops/keccak.py:118)"),
+    "field_add": ("snark_verifier_tpu_torch/csrc/field_add.cu", "none (XLA: snark_verifier_tpu/ops/field.py:269)"),
+    "field_sub": ("snark_verifier_tpu_torch/csrc/field_add.cu", "none (XLA: snark_verifier_tpu/ops/field.py:275)"),
+    "field_neg": ("snark_verifier_tpu_torch/csrc/field_add.cu", "none (XLA: snark_verifier_tpu/ops/field.py:283)"),
+    "reduce_u256": ("snark_verifier_tpu_torch/csrc/field_add.cu", "none (XLA: snark_verifier_tpu/ops/encode.py:38)"),
+    "lt_modulus": ("snark_verifier_tpu_torch/csrc/field_add.cu", "none (XLA: snark_verifier_tpu/ops/encode.py:59)"),
 }
 PAIRING_KERNELS = ("miller_loop", "final_exp")  # K7's kernels on the pairing path
 SLICE_KERNELS = ("mont_mul", "mont_pow", "g1_add", "g1_double", "msm_scan", "keccak256")  # the Keccak-transcript verify
@@ -189,6 +203,14 @@ POSEIDON_LEVELS = 4  # dependent products a round on K10's chain: the S-box's 3,
 KECCAK_VERIFY_LENGTHS = (256, 33, 33, 96, 224, 448, 160)
 KECCAK_EDGE_LENGTHS = (0, 135, 136, 137)
 KECCAK_OPS_PER_ROUND = 310
+# K12: its ops, each the name of its route in ops/field.py; the calls of each
+# on the Keccak verify, the Poseidon verify and the outer snark with its
+# per-proof decide (the same at any batch; the batch decide makes none), one
+# launch each; the widths it is checked at
+K12_ROUTES = {"field_add": "add", "field_sub": "sub", "field_neg": "neg", "reduce_u256": "reduce_u256",
+              "lt_modulus": "lt_modulus"}
+K12_CALLS = {"verify": (44, 18, 0, 7, 31), "poseidon": (44, 18, 9, 18, 22), "outer": (139, 60, 20, 40, 52)}
+K12_WIDTHS = (1, 8, B)
 # K2/K5: the widths of their launches on the main path (the decide's bucket
 # tree 32768 ... 32 pairs, flushes 8192, tree sums 4096 ... 32, suffix scans
 # 8192 ... 32; the verify's table build 32760), and their launch counts
@@ -1175,6 +1197,64 @@ def fold_summary(folds: dict) -> str:
             f"{len(copied)} copied{(' ' + str(copied[:4])) if copied else ''}")
 
 
+def phase_kernels_k12(torch, dev, rng):
+    """K12's five ops against their plain versions, bit for bit, in Fq and
+    Fr: at 1, 8 and 1820 rows of edge values (0, 1, p - 1, p, p + 1, 2p - 1,
+    2p, 5p, 2^255, 2^256 - 1, 0xFFFF limbs in the top or the bottom half; every
+    pair of them for two operands) and random 256-bit rows, and at 1820 rows
+    against one broadcast row both ways, an expanded row and a column of
+    (1820, 5, 16); at 1820 rows of Fr, each op's call (CUDA events, enqueue
+    included) and device ms per launch (``device_ms``), one element's launch
+    less an empty launch (its critical path), the plain version's ms, the
+    bound, and the host aten ops of one call, plain and K12."""
+    from snark_verifier_tpu_torch.ops import field as F
+
+    ops = {name: (getattr(F, route), getattr(F, f"{route}_plain")) for name, route in K12_ROUTES.items()}
+    arity = {"field_add": 2, "field_sub": 2}
+    checked = 0
+    for spec in (F.FQ, F.FR):
+        p, top = spec.modulus, (1 << 256) - 1
+        edges = [0, 1, p - 1, p, p + 1, 2 * p - 1, 2 * p, 5 * p, 1 << 255, top, top ^ ((1 << 128) - 1),
+                 (1 << 128) - 1]
+        a = [x for x in edges for _ in edges] + [rng.getrandbits(256) for _ in range(B - len(edges) ** 2)]
+        b = [y for _ in edges for y in edges] + [rng.getrandbits(256) for _ in range(B - len(edges) ** 2)]
+        ta, tb = (torch.as_tensor([[(v >> (16 * j)) & 0xFFFF for j in range(16)] for v in vals], device=dev)
+                  for vals in (a, b))
+        wide = torch.stack([tb, ta, tb.flip(0), ta.flip(0), tb.roll(1, 0)], dim=1)  # (B, 5, 16)
+        row = ta[3]  # p
+        forms = [(ta[:n], tb[:n]) for n in K12_WIDTHS] + [
+            (ta[B - 8:], tb[:8]), (ta, row), (row, ta), (ta, row.expand(B, 16)), (wide[:, 3], row), (tb, wide[:, 1])]
+        for name, (op, plain) in ops.items():
+            for x, y in forms:
+                args = (x, y)[:arity.get(name, 1)]
+                got, want = op(*args, spec), plain(*args, spec)
+                torch.cuda.synchronize()
+                require(got.shape == want.shape and got.dtype == want.dtype and torch.equal(got, want),
+                        f"{name} {spec.name} {tuple(x.shape)} x {tuple(y.shape)} stride {y.stride()}: != plain")
+                checked += 1
+    log(f"kernel K12: {', '.join(ops)} equal to plain in Fq and Fr, {checked} cases: {K12_WIDTHS} rows of edge "
+        f"values and random 256-bit rows, a batch against a broadcast row both ways, an expanded row, a column of "
+        f"({B}, 5, 16)")
+
+    results = {}
+    for name, (op, plain) in ops.items():
+        args = (ta, tb)[:arity.get(name, 1)]
+        nbytes = (len(args) * B + (B if name != "lt_modulus" else 0)) * FE_BYTES + (B if name == "lt_modulus" else 0)
+        one = one_item_chain(torch, lambda: op(*(t[:1] for t in args), F.FR), reps=50)
+        res = {"max_abs_err": 0.0, "ms": cuda_ms(torch, lambda: op(*args, F.FR)),
+               "device_ms": device_ms(torch, lambda: op(*args, F.FR), reps=100),
+               "plain_ms": cuda_ms(torch, lambda: plain(*args, F.FR)), "shape": {"rows": B, "operands": len(args)},
+               **bound(nbytes, 0), "one_item": one, "critical_path_ms": one["chain_ms"],
+               "host_aten_ops": {"plain": host_aten_ops(torch, lambda: plain(*args, F.FR)),
+                                 "k12": host_aten_ops(torch, lambda: op(*args, F.FR))}}
+        results[name] = res
+        log(f"kernel {name} ({B} rows, Fr): call {res['ms']:.4f} ms, device ms per launch {res['device_ms']:.6f}, "
+            f"one element's launch less an empty one {one['chain_ms']:.6f} ms; plain {res['plain_ms']:.4f} ms; "
+            f"bound {res['bound_ms']:.6f} ms ({res['bound_by']}); host aten ops a call: plain "
+            f"{res['host_aten_ops']['plain']}, K12 {res['host_aten_ops']['k12']}")
+    return results
+
+
 def wrappers():
     from snark_verifier_tpu_torch.ops import curve as C
     from snark_verifier_tpu_torch.ops import field as F
@@ -1188,7 +1268,8 @@ def wrappers():
             "msm_scan": MK.msm_scan, "g1_add_select": C.g1_add_select, "horner_combine": MK.horner_combine,
             "fq12_mul": T.fq12_mul_flat,
             "msm_window": MK.msm_window, "msm_horner": MK.msm_horner, "miller_loop": PAIR.miller_loop_pair,
-            "final_exp": PAIR.final_exponentiation, "poseidon_perm": P.poseidon_perm, "keccak256": K.keccak256_cuda}
+            "final_exp": PAIR.final_exponentiation, "poseidon_perm": P.poseidon_perm, "keccak256": K.keccak256_cuda,
+            **{name: getattr(F, route) for name, route in K12_ROUTES.items()}}
 
 
 def count_launches(torch, run, required, absent=()):
@@ -1199,8 +1280,9 @@ def count_launches(torch, run, required, absent=()):
     ``field.pow_const``, through which ``field.inv`` goes; none launches
     anything of its own) and fails unless each pairing check made one launch
     of each of K7's pairing kernels and no single Fq12 product, each small MSM
-    one K4 launch and none of K8 or K9, and each ``pow_const``/``inv`` one
-    ``mont_pow`` launch."""
+    one K4 launch and none of K8 or K9, each ``pow_const``/``inv`` one
+    ``mont_pow`` launch, and each call of K12's ops on a non-empty batch (by
+    wrapping ``field.add`` and the others) one K12 launch."""
     from snark_verifier_tpu_torch.ops import field as F
     from snark_verifier_tpu_torch.ops import msm as M
     from snark_verifier_tpu_torch.ops import pairing as PAIR
@@ -1216,14 +1298,26 @@ def count_launches(torch, run, required, absent=()):
             return fn(*a, **k)
         return wrapper
 
+    def rows_counted(key, fn):  # calls of a K12 op on a non-empty batch
+        calls[key] = 0
+
+        def wrapper(*a):
+            calls[key] += math.prod(F.broadcast_rows(*a[:-1])) > 0
+            return fn(*a)
+        return wrapper
+
     check, tables, pow_const = PAIR.kzg_pairing_check, M.build_tables, F.pow_const
     PAIR.kzg_pairing_check, M.build_tables = counted("pairing_checks", check), counted("small_msms", tables)
     F.pow_const = counted("pow_chains", pow_const)
+    for name, route in K12_ROUTES.items():
+        setattr(F, route, rows_counted(f"{name}_calls", kernels[name]))
     try:
         result = run()
         torch.cuda.synchronize()
     finally:
         PAIR.kzg_pairing_check, M.build_tables, F.pow_const = check, tables, pow_const
+        for name, route in K12_ROUTES.items():
+            setattr(F, route, kernels[name])
     launches = {name: k.launches for name, k in kernels.items()}
     for name in required:
         require(launches[name] > 0, f"{name} was not launched by the main path")
@@ -1237,10 +1331,19 @@ def count_launches(torch, run, required, absent=()):
             f"K4/K8/K9 launches {[launches[k] for k in ('msm_scan', 'msm_window', 'msm_horner')]} "
             f"for {msms} small MSMs")
     require(launches["mont_pow"] == chains, f"{launches['mont_pow']} mont_pow launches for {chains} pow_const/inv calls")
+    k12 = {name: (calls[f"{name}_calls"], launches[name]) for name in K12_ROUTES}
+    require(all(c == n for c, n in k12.values()), f"K12 (calls, launches) by op {k12}: not one launch a call")
     log(f"path: {checks} pairing checks ({launches['miller_loop']} + {launches['final_exp']} K7 launches, "
         f"{launches['fq12_mul']} single Fq12 products), {msms} small MSMs ({launches['msm_scan']} K4 launches), "
-        f"{chains} pow_const/inv chains ({launches['mont_pow']} mont_pow launches), {launches['mont_mul']} K1 launches")
+        f"{chains} pow_const/inv chains ({launches['mont_pow']} mont_pow launches), {launches['mont_mul']} K1 launches, "
+        f"K12 calls by op {[c for c, _ in k12.values()]} ({sum(n for _, n in k12.values())} K12 launches)")
     return result, {**launches, **calls}
+
+
+def require_k12(launches, path: str, label: str) -> None:
+    """K12's launches on a verify, by op, must be ``K12_CALLS[path]``."""
+    got = tuple(launches[name] for name in K12_ROUTES)
+    require(got == K12_CALLS[path], f"{label}: K12 launches {got} by op {tuple(K12_ROUTES)}, not {K12_CALLS[path]}")
 
 
 def check_against_native(out, fx, rows, proofs, instances):
@@ -1299,6 +1402,7 @@ def phase_poseidon(torch, dev, card):
             f"poseidon: {launches['poseidon_perm']} K10 launches, not one per permutation ({POSEIDON_PERMS})")
     require(launches["mont_mul"] < POSEIDON_MAX_K1,
             f"poseidon: {launches['mont_mul']} K1 launches, not under {POSEIDON_MAX_K1}")
+    require_k12(launches, "poseidon", "poseidon")
     ok = out["ok"].cpu().tolist()
     require(ok == [row not in bad_rows for row in range(B)],
             "poseidon: ok must be False exactly on the corrupted rows (x >= p, non-residue x)")
@@ -1370,6 +1474,7 @@ def phase_aggregation(torch, dev, card):
     require(launches["g1_double"] == AGG_DBL_LAUNCHES,
             f"aggregation: {launches['g1_double']} K3 launches, not {AGG_DBL_LAUNCHES}")
     require(len(captured) == launches["msm_scan"] > 0, "aggregation: every small MSM of the run must be captured")
+    require_k12(launches, "outer", "aggregation")
     require(tuple(out["lhs_x"].shape) == (2, AGG_BATCH, 16), "aggregation: outputs must be (2, B, 16)")
     for row in range(AGG_BATCH):
         got = [decode_accumulator({k: v[a] for k, v in out.items() if k != "ok"}, row) for a in range(2)]
@@ -1508,6 +1613,7 @@ def phase_slice(torch, dev, card):
             f"slice: K3 launches {launches['g1_double']}, not {VERIFY_DBL_LAUNCHES}")
     require(launches["keccak256"] == len(KECCAK_VERIFY_LENGTHS),
             f"slice: K11 launches {launches['keccak256']}, not one per hash ({len(KECCAK_VERIFY_LENGTHS)})")
+    require_k12(launches, "verify", "slice")
     ADD_PATH_WIDTHS["verify"] = widths
 
     for key in ("lhs_x", "lhs_y", "rhs_x", "rhs_y"):
@@ -1663,7 +1769,7 @@ def phase_decide(torch, dev, card, out, wrong_row, verify_s):
     t0 = time.perf_counter()
     widths, restore = add_launch_recorder(C)
     try:
-        ok, launches = count_launches(torch, lambda: decider(*good_args), DECIDE_KERNELS)
+        ok, launches = count_launches(torch, lambda: decider(*good_args), DECIDE_KERNELS, absent=tuple(K12_ROUTES))
     finally:
         restore()
     first_s = time.perf_counter() - t0
@@ -2216,6 +2322,7 @@ def main() -> int:
         results[name]["lanes"] = res
     results["poseidon_perm"] = phase_kernels_poseidon(torch, dev, rng, results)
     results["keccak256"] = phase_kernels_keccak(torch, dev, rng)
+    results.update(phase_kernels_k12(torch, dev, rng))
     done("kernels")
     slice_launches, slice_per_launch, slice_least, out, wrong_row, verify_s = phase_slice(torch, dev, smi)
     phase_shplonk(torch, dev)
@@ -2253,16 +2360,17 @@ def main() -> int:
             "the port must not import the JAX package")
 
     # each kernel's launches, and its mean device ms per launch (torch.profiler),
-    # on the path that counts it: the slice for K1-K4 and mont_pow, the decide for K5-K7
+    # on the path that counts it: the slice for K1-K4 and mont_pow, the decide for K5-K7,
+    # the Poseidon verify for K10 and K12 (the one verify that makes all five of K12's ops)
     # (K7's single product launches on no path: the pairing runs its own two
     # kernels; nor do K8-K9: the outer snark's count of them is 0)
     windowed = ("msm_window", "msm_horner")
     launches = {**{k: decide_launches[k] for k in (*DECIDE_KERNELS, "fq12_mul")},
                 **{k: slice_launches[k] for k in SLICE_KERNELS}, **{k: agg_launches[k] for k in windowed},
-                "poseidon_perm": poseidon_launches["poseidon_perm"]}
+                **{k: poseidon_launches[k] for k in ("poseidon_perm", *K12_ROUTES)}}
     path_ms = {**{k: decide_per_launch.get(k) for k in (*DECIDE_KERNELS, "fq12_mul")},
                **{k: slice_per_launch.get(k) for k in SLICE_KERNELS}, **{k: agg_per_launch.get(k) for k in windowed},
-               "poseidon_perm": poseidon_per_launch.get("poseidon_perm")}
+               **{k: poseidon_per_launch.get(k) for k in ("poseidon_perm", *K12_ROUTES)}}
     # the per-launch floor: the least device time any one kernel launch took
     # in the path profiles; no launch, however little its work, takes less
     floors = [t for t in (slice_least, decide_least, poseidon_least, agg_least) if t is not None]
@@ -2277,7 +2385,7 @@ def main() -> int:
     paths = {"verify": slice_launches, "decide": decide_launches, "poseidon_verify": poseidon_launches,
              "outer_snark": agg_launches}
     for row in report:
-        if row["name"] in ("mont_mul", "mont_pow", "poseidon_perm", "keccak256"):
+        if row["name"] in ("mont_mul", "mont_pow", "poseidon_perm", "keccak256", *K12_ROUTES):
             row["launches_by_path"] = {k: v[row["name"]] for k, v in paths.items()}
         row["ptxas"] = {k: v for k, v in ptxas.items() if k.split(" ")[0] == row["name"]}
         if row["name"] in ("g1_add", "g1_add_select"):

@@ -29,7 +29,7 @@ from snark_verifier_tpu_torch.ops.limbs import NLIMB
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-KERNEL_SOURCES = ("field.cu", "curve.cu", "msm.cu", "tower.cu", "poseidon.cu", "keccak.cu")
+KERNEL_SOURCES = ("field.cu", "curve.cu", "msm.cu", "tower.cu", "poseidon.cu", "keccak.cu", "field_add.cu")
 HEADERS = ("bn254.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -55,6 +55,11 @@ SIGNATURES = {
     "svtpu_msm_horner": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P, _INT, _P],
     "svtpu_poseidon_perm": [_P, _P, _INT, _P, _I64, _P, _I64, _INT, _INT, _INT, _P, _P],
     "svtpu_keccak256": [_P, _I64, _P, _I64, _P],
+    "svtpu_field_add": [_P, _I64, _P, _I64, _P, _I64, _P, _P],
+    "svtpu_field_sub": [_P, _I64, _P, _I64, _P, _I64, _P, _P],
+    "svtpu_field_neg": [_P, _I64, _P, _I64, _P, _P],
+    "svtpu_reduce_u256": [_P, _I64, _P, _I64, _P, _P],
+    "svtpu_lt_modulus": [_P, _I64, _P, _I64, _P, _P],
 }
 
 

@@ -29,11 +29,9 @@ def limbs_to_be_bytes(limbs):
 
 def reduce_u256(limbs, spec):
     """Reduce a 256-bit value into [0, p) by conditional subtraction
-    (2^256 / p < 6 for both BN254 moduli)."""
-    x = limbs
-    for _ in range(5):
-        x = F._cond_sub_mod(x, spec)
-    return x
+    (2^256 / p < 6 for both BN254 moduli): ``field.reduce_u256``, one K12
+    launch on CUDA tensors."""
+    return F.reduce_u256(limbs, spec)
 
 
 def le_bytes_to_limbs(data):
@@ -47,6 +45,6 @@ def limbs_to_le_bytes(limbs):
 
 
 def is_lt_modulus(limbs, spec):
-    """Boolean (...,): value < modulus (canonical encoding check)."""
-    _, borrow = F._sub_limbs(limbs, spec.consts(limbs.device)["mod"])
-    return borrow > 0
+    """Boolean (...,): value < modulus (canonical encoding check):
+    ``field.lt_modulus``, one K12 launch on CUDA tensors."""
+    return F.lt_modulus(limbs, spec)

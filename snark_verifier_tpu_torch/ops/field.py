@@ -1,6 +1,7 @@
 """Batched modular arithmetic over BN254 Fq/Fr on int64 limb tensors, with
-kernel K1 (the batched Montgomery multiply) and its fixed-exponent chain
-``mont_pow``.
+kernel K1 (the batched Montgomery multiply), its fixed-exponent chain
+``mont_pow``, and K12 (modular add, sub, neg, the u256 reduction and the
+modulus check).
 
 Counterpart of ``snark_verifier_tpu/ops/field.py``.  Elements are
 ``(..., 16)`` int64 tensors of 16-bit little-endian limbs in Montgomery form
@@ -14,18 +15,23 @@ multiply that XLA fused; eager PyTorch cannot fuse them, so every
 ``mont_mul`` on a CUDA tensor launches K1 instead.  ``mont_pow`` runs the
 whole chain of ``pow_const`` (Fermat inversions, square roots, x^n), which
 the JAX package runs as one ``lax.scan`` over the same kernel, in one launch
-instead of one K1 launch per product.  What bounds each on the H100 and what
-the design does about it is in the source's header.
+instead of one K1 launch per product.  K12 (``csrc/field_add.cu``) replaces
+no TPU kernel: XLA fuses ``add``, ``sub``, ``neg`` and the encodings'
+``reduce_u256`` and ``is_lt_modulus`` into the programs around them, while
+eager PyTorch ran each as 17-90 small tensor ops; K12 runs each call in one
+launch, reading a broadcast or strided operand in place.  What bounds each
+kernel on the H100 and what the design does about it is in its source's
+header.
 
-``mont_mul_plain`` is the same function in plain PyTorch: separated operand
-scanning on int64 limbs, the arithmetic of the JAX package's
-``ops/field.mont_mul``; ``mont_pow_plain`` is the 4-bit window chain over
-it.  The routes ``mont_mul`` and ``mont_pow`` take them only for CPU
-tensors.  The other ops are plain PyTorch on either device.  Carries are
-resolved without a sequential limb loop: a column's carry-in is a bit of
-``(A + B) ^ A ^ B``, where A and B pack each column's propagate-or-generate
-and generate flags into one int64 (the carry-lookahead adder done by the
-integer adder).
+``mont_mul_plain``, ``add_plain`` and the other ``*_plain`` functions are
+the same functions in plain PyTorch, the arithmetic of the JAX package's
+``ops/field.py``: separated operand scanning on int64 limbs for the
+product, ``mont_pow_plain`` the 4-bit window chain over it.  The routes
+take them only for CPU tensors.  The other ops are plain PyTorch on either
+device.  Carries are resolved without a sequential limb loop: a column's
+carry-in is a bit of ``(A + B) ^ A ^ B``, where A and B pack each column's
+propagate-or-generate and generate flags into one int64 (the
+carry-lookahead adder done by the integer adder).
 """
 
 from __future__ import annotations
@@ -342,23 +348,143 @@ mont_pow.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# Public field ops (Montgomery form unless stated otherwise)
+# Kernel K12 (modular add, sub, neg, u256 reduction, modulus check), with its
+# plain versions
 # ---------------------------------------------------------------------------
 
+REDUCE_ROUNDS = 5  # 2^256 / p < 6 for both BN254 moduli
 
-def add(a, b, spec: FieldSpec):
+
+def add_plain(a, b, spec: FieldSpec):
+    """(a + b) mod p on (..., 16) int64 limbs, any device: the sum's carry or
+    a sum >= p subtracts p once (the JAX package's ``ops/field.add``)."""
     s, carry = _add_limbs(a, b)
     return _cond_sub_mod(s, spec, extra=carry)
 
 
-def sub(a, b, spec: FieldSpec):
+def sub_plain(a, b, spec: FieldSpec):
+    """(a - b) mod p on (..., 16) int64 limbs, any device: p is added back
+    when a < b (the JAX package's ``ops/field.sub``)."""
     d, borrow = _sub_limbs(a, b)
     corrected, _ = _add_limbs(d, spec.consts(d.device)["mod"])
     return torch.where((borrow > 0).unsqueeze(-1), corrected, d)
 
 
-def neg(a, spec: FieldSpec):
-    return sub(torch.zeros_like(a), a, spec)
+def neg_plain(a, spec: FieldSpec):
+    return sub_plain(torch.zeros_like(a), a, spec)
+
+
+def reduce_u256_plain(limbs, spec: FieldSpec):
+    """A 256-bit value into [0, p) by ``REDUCE_ROUNDS`` conditional
+    subtractions (the JAX package's ``ops/encode.reduce_u256``)."""
+    x = limbs
+    for _ in range(REDUCE_ROUNDS):
+        x = _cond_sub_mod(x, spec)
+    return x
+
+
+def lt_modulus_plain(limbs, spec: FieldSpec):
+    """Boolean (...,): value < p (the JAX package's ``ops/encode.is_lt_modulus``)."""
+    _, borrow = _sub_limbs(limbs, spec.consts(limbs.device)["mod"])
+    return borrow > 0
+
+
+def row_stride(t: torch.Tensor, rows) -> int | None:
+    """The step, in int64 elements, from one row of 16 limbs of ``t`` to the
+    next when ``t`` is broadcast over the leading shape ``rows`` and its rows
+    are read in order: 16 for a contiguous row set, 0 for one row broadcast
+    over all, a view's own stride where its leading dims fold into one.
+    None where they do not fold, or where the limbs are not contiguous."""
+    if t.stride(-1) != 1:
+        return None
+    if t.shape[:-1] == rows and t.is_contiguous():
+        return NLIMB
+    pad = len(rows) - (t.dim() - 1)
+    sizes, strides = (1,) * pad + tuple(t.shape[:-1]), (0,) * pad + tuple(t.stride()[:-1])
+    step, inner = None, 1
+    for size, stride, n in zip(reversed(sizes), reversed(strides), reversed(rows)):
+        if n > 1:
+            stride = 0 if size == 1 else stride
+            if step is None:
+                if stride % inner:
+                    return None
+                step = stride // inner
+            elif stride != step * inner:
+                return None
+        inner *= n
+    return step or 0
+
+
+def broadcast_rows(*operands: torch.Tensor) -> tuple:
+    """The broadcast leading shape of (..., 16) operands; raises where they
+    do not broadcast.  (``torch.broadcast_shapes`` takes ~20 us a call on
+    the host, more than the rest of a K12 launch's Python.)"""
+    shapes = [tuple(t.shape[:-1]) for t in operands]
+    rows = shapes[0]
+    for shape in shapes[1:]:
+        if shape == rows:
+            continue
+        n = max(len(rows), len(shape))
+        a, b = (1,) * (n - len(rows)) + rows, (1,) * (n - len(shape)) + shape
+        if any(x != y and 1 not in (x, y) for x, y in zip(a, b)):
+            raise ValueError(f"limb operands of batch shapes {shapes} do not broadcast")
+        rows = tuple(y if x == 1 else x for x, y in zip(a, b))
+    return rows
+
+
+def _k12_operand(t: torch.Tensor, rows):
+    """``t`` as K12 reads it over ``rows``: (tensor, row stride).  Read in
+    place through its ``row_stride``; copied contiguous (stride 16) only
+    where its rows do not fold into one stride or miss 16-byte boundaries."""
+    stride = row_stride(t, rows)
+    if stride is None or stride % 2 or t.data_ptr() % 16:
+        return _build.aligned(t.expand(*rows, NLIMB)), NLIMB
+    return t, stride
+
+
+def _k12_route(name: str, entry: str, plain, doc: str, dtype=torch.int64):
+    """One of K12's ops, called as ``op(*operands, spec)`` on (..., 16) int64
+    limb tensors (broadcasting): CPU tensors take ``plain``; CUDA tensors
+    launch ``entry`` once over the operands' broadcast rows into a new output
+    of 16 limbs a row (one bool a row for ``torch.bool``), each operand read
+    in place through ``_k12_operand``.  The launches are counted on the op's
+    ``launches``."""
+
+    def route(*args):
+        *operands, spec = args
+        _build.check_limbs(name, *operands)
+        if not use_kernel(*operands):
+            return plain(*operands, spec)
+        rows = broadcast_rows(*operands)
+        tail = (NLIMB,) if dtype == torch.int64 else ()
+        out = torch.empty(rows + tail, dtype=dtype, device=operands[0].device)
+        n = math.prod(rows)
+        if n:
+            inputs = [_k12_operand(t, rows) for t in operands]
+            _build.launch(entry, out, *(x for t, stride in inputs for x in (t.data_ptr(), stride)), out.data_ptr(),
+                          n, _build.field_arg(spec))
+            route.launches += 1
+        return out
+
+    route.__name__ = route.__qualname__ = name
+    route.__doc__ = doc
+    route.launches = 0
+    return route
+
+
+add = _k12_route("add", "svtpu_field_add", add_plain, """add(a, b, spec): (a + b) mod p; the same limbs as
+    ``add_plain`` for any 256-bit operands.""")
+sub = _k12_route("sub", "svtpu_field_sub", sub_plain, "sub(a, b, spec): (a - b) mod p, as ``sub_plain``.")
+neg = _k12_route("neg", "svtpu_field_neg", neg_plain, "neg(a, spec): (0 - a) mod p, as ``neg_plain``.")
+reduce_u256 = _k12_route("reduce_u256", "svtpu_reduce_u256", reduce_u256_plain, """reduce_u256(limbs, spec): a
+    256-bit value into [0, p), as ``reduce_u256_plain``.""")
+lt_modulus = _k12_route("lt_modulus", "svtpu_lt_modulus", lt_modulus_plain, """lt_modulus(limbs, spec): boolean
+    (...,), value < p, as ``lt_modulus_plain``.""", dtype=torch.bool)
+
+
+# ---------------------------------------------------------------------------
+# Public field ops (Montgomery form unless stated otherwise)
+# ---------------------------------------------------------------------------
 
 
 def mont_sqr(a, spec: FieldSpec):

@@ -5,15 +5,20 @@ Integer arithmetic: every comparison is exact (tolerance zero).  Inputs are
 made from a numpy seed and handed to both sides as numpy arrays.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
 
 from snark_verifier_tpu.ops import field as JF
 from snark_verifier_tpu.ops import field_pallas as FP
-from snark_verifier_tpu.ops.limbs import NLIMB, int_to_limbs
+from snark_verifier_tpu.ops.limbs import NLIMB, int_to_limbs, limbs_to_int
+from snark_verifier_tpu_torch import _build
 from snark_verifier_tpu_torch.ops import field as F
 from snark_verifier_tpu_torch.ops.convert import limbs_to_tensor, tensor_to_limbs
+
+from host_cuda import compile_body
 
 SPECS = [(F.FQ, JF.FQ), (F.FR, JF.FR)]
 IDS = ["Fq", "Fr"]
@@ -278,3 +283,201 @@ def test_constants_selects_and_sums_match_jax():
     pairs_t = [(ta, tb), (tb, tb), (ta, ta)]
     pairs_j = [(ja, jb), (jb, jb), (ja, ja)]
     assert_same(F.sum_products(pairs_t, spec), JF.sum_products(pairs_j, jspec))
+
+
+# ---------------------------------------------------------------------------
+# K12 (csrc/field_add.cu): its kernel body, compiled for the host, behind the
+# wrappers' own CUDA route
+# ---------------------------------------------------------------------------
+
+K12_SOURCE = _build.CSRC_DIR / "field_add.cu"
+K12_ENTRIES = ("svtpu_field_add", "svtpu_field_sub", "svtpu_field_neg", "svtpu_reduce_u256", "svtpu_lt_modulus")
+# K12's C entry points as host functions of the same arguments (the stream
+# left out): every thread of the launch's grid, one call each, in turn.
+K12_HOST_DRIVER = """
+template <typename Kernel, typename... Args>
+int each_thread(int64_t n, Kernel kernel, Args... args) {
+  blockDim.x = K12_BLOCK;
+  for (int64_t t = 0; t < int64_t(grid_for(n)) * K12_BLOCK; ++t) {
+    blockIdx.x = unsigned(t / K12_BLOCK);
+    threadIdx.x = unsigned(t % K12_BLOCK);
+    kernel(args...);
+  }
+  return 0;
+}
+using I = const int64_t*;
+extern "C" int svtpu_field_add(const void* a, int64_t sa, const void* b, int64_t sb, void* out, int64_t n,
+                               const void* f) {
+  return each_thread(n, field_add_kernel, I(a), sa, I(b), sb, (int64_t*)out, n, modulus_from_host(f));
+}
+extern "C" int svtpu_field_sub(const void* a, int64_t sa, const void* b, int64_t sb, void* out, int64_t n,
+                               const void* f) {
+  return each_thread(n, field_sub_kernel, I(a), sa, I(b), sb, (int64_t*)out, n, modulus_from_host(f));
+}
+extern "C" int svtpu_field_neg(const void* a, int64_t sa, void* out, int64_t n, const void* f) {
+  return each_thread(n, field_neg_kernel, I(a), sa, (int64_t*)out, n, modulus_from_host(f));
+}
+extern "C" int svtpu_reduce_u256(const void* a, int64_t sa, void* out, int64_t n, const void* f) {
+  return each_thread(n, reduce_u256_kernel, I(a), sa, (int64_t*)out, n, modulus_from_host(f));
+}
+extern "C" int svtpu_lt_modulus(const void* a, int64_t sa, void* out, int64_t n, const void* f) {
+  return each_thread(n, lt_modulus_kernel, I(a), sa, (uint8_t*)out, n, modulus_from_host(f));
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def k12_host(tmp_path_factory):
+    """K12's kernel body built for the host, its entries typed as the
+    library's (less the stream)."""
+    lib = compile_body(K12_SOURCE, K12_HOST_DRIVER, tmp_path_factory.mktemp("k12"))
+    for name in K12_ENTRIES:
+        getattr(lib, name).argtypes = _build.SIGNATURES[name][:-1]
+        getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+@pytest.fixture
+def k12_route(k12_host, monkeypatch):
+    """The five wrappers' CUDA route on CPU tensors: ``use_kernel`` says
+    yes, and ``_build.launch`` runs the host-built body with the wrapper's
+    pointers, strides and sizes; the launch counters start at 0."""
+    monkeypatch.setattr(F, "use_kernel", lambda *tensors: True)
+    def host_launch(entry, like, *args):
+        _build.check(getattr(k12_host, entry)(*args), entry)
+
+    monkeypatch.setattr(_build, "launch", host_launch)
+    for op in (F.add, F.sub, F.neg, F.reduce_u256, F.lt_modulus):
+        monkeypatch.setattr(op, "launches", 0)
+
+
+def k12_values(spec, seed, n_random=24):
+    """The edges (0, 1, p - 1, p, p + 1, 2p - 1, 2p, 5p, 2^255, 2^256 - 1,
+    the 0xFFFF limbs of the top half alone and of the bottom half alone),
+    then random 256-bit values: any 256-bit input, values >= p included."""
+    p, top = spec.modulus, (1 << 256) - 1
+    edges = [0, 1, p - 1, p, p + 1, 2 * p - 1, 2 * p, 5 * p, 1 << 255, top, top ^ ((1 << 128) - 1), (1 << 128) - 1]
+    rng = np.random.default_rng(seed)
+    return edges + [int.from_bytes(rng.bytes(32), "little") for _ in range(n_random)]
+
+
+def raw(values):
+    """Python ints below 2^256 -> (n, 16) int64 limbs, as they are (no Montgomery form)."""
+    return torch.as_tensor(np.stack([int_to_limbs(v) for v in values]).astype(np.int64))
+
+
+def k12_cases(spec):
+    """(a, b) rows of raw limbs: every pair of edges, then random pairs."""
+    vals = k12_values(spec, 21)
+    edges = vals[:12]
+    a = [x for x in edges for _ in edges] + vals[12:]
+    b = [y for _ in edges for y in edges] + k12_values(spec, 22)[12:]
+    return raw(a), raw(b)
+
+
+@pytest.mark.parametrize("spec", [F.FQ, F.FR], ids=IDS)
+def test_k12_kernel_body_compiled_for_the_host_matches_plain(spec, k12_route):
+    """K12's five entries, through the wrappers' CUDA route with the kernel
+    body built for the host, equal the plain versions limb for limb on every
+    pair of edge values (0, 1, p - 1, p, p + 1, ..., 2^256 - 1) and on random
+    256-bit rows; and the plain versions equal the rules of python ints:
+    add subtracts p on a carry or a sum >= p, sub adds p back when a < b,
+    reduce_u256 is five conditional subtractions, lt_modulus is x < p."""
+    a, b = k12_cases(spec)
+    got = {"add": F.add(a, b, spec), "sub": F.sub(a, b, spec), "neg": F.neg(a, spec),
+           "reduce": F.reduce_u256(a, spec), "lt": F.lt_modulus(a, spec)}
+    want = {"add": F.add_plain(a, b, spec), "sub": F.sub_plain(a, b, spec), "neg": F.neg_plain(a, spec),
+            "reduce": F.reduce_u256_plain(a, spec), "lt": F.lt_modulus_plain(a, spec)}
+    for name in got:
+        assert got[name].shape == want[name].shape and got[name].dtype == want[name].dtype, name
+        assert torch.equal(got[name], want[name]), name
+    assert [op.launches for op in (F.add, F.sub, F.neg, F.reduce_u256, F.lt_modulus)] == [1] * 5
+    p, top = spec.modulus, 1 << 256
+    for x, y, s, d, r, lt in zip(*(map(limbs_to_int, t.numpy()) for t in (a, b, want["add"], want["sub"],
+                                                                        want["reduce"])), want["lt"].tolist()):
+        total = x + y
+        assert s == ((total % top - p) % top if total >= top or total % top >= p else total)
+        assert d == ((x - y + p) % top if x < y else x - y)
+        assert lt == (x < p)
+        for _ in range(F.REDUCE_ROUNDS):
+            x = x - p if x >= p else x
+        assert r == x
+
+
+@pytest.mark.parametrize("spec", [F.FQ, F.FR], ids=IDS)
+def test_k12_reads_broadcast_and_strided_operands_in_place(spec, k12_route, monkeypatch):
+    """The operand forms of the verifies, each through the host-built body:
+    a batch against one broadcast row both ways (a ``()``-shaped constant and
+    an expanded one, stride 0), a column sliced out of (B, 5, 16) (stride 80),
+    leading dims (3, 5) against a row, a single row (output batch ()), an
+    empty batch (no launch), and operands whose rows do not fold into one
+    stride (five rows repeated three times; a column against a row) or are
+    not 16-byte aligned: every result equals the plain version's, and only
+    those last operands are copied, each time they are read."""
+    copies = []
+    aligned = _build.aligned
+    monkeypatch.setattr(_build, "aligned", lambda t: copies.append(tuple(t.shape)) or aligned(t))
+    vals = k12_values(spec, 23, n_random=3)  # 15 rows
+    x = raw(vals)
+    row = raw([spec.modulus + 5])[0]
+    wide = torch.stack([x, x.flip(0), x.roll(1, 0), x.roll(2, 0), x.roll(3, 0)], dim=1)  # (15, 5, 16)
+    shifted = torch.cat([torch.zeros(1, dtype=torch.int64), x.reshape(-1)])[1:].view(x.shape)  # 8-byte offset
+    assert shifted.data_ptr() % 16 == 8 and torch.equal(shifted, x)
+    pairs = [(x, row), (row, x), (x, row.expand(15, NLIMB)), (row.expand(15, NLIMB), x), (wide[:, 2], row),
+             (x, wide[:, 4]), (x.reshape(3, 5, NLIMB), row), (x.reshape(3, 5, NLIMB), x[:5]), (row, row),
+             (x[:0], row),
+             (x[:, None], x[None, :4]), (shifted, x)]
+    for a, b in pairs:
+        for op, plain in ((F.add, F.add_plain), (F.sub, F.sub_plain)):
+            got, want = op(a, b, spec), plain(a, b, spec)
+            assert got.shape == want.shape and torch.equal(got, want), (op.__name__, a.shape, b.stride(), b.shape)
+        for op, plain in ((F.neg, F.neg_plain), (F.reduce_u256, F.reduce_u256_plain),
+                          (F.lt_modulus, F.lt_modulus_plain)):
+            got, want = op(a, spec), plain(a, spec)
+            assert got.shape == want.shape and torch.equal(got, want), (op.__name__, a.shape, a.stride())
+    # the empty batch launched nothing; every other pair launched once a call
+    assert F.add.launches == F.sub.launches == len(pairs) - 1
+    assert F.neg.launches == F.reduce_u256.launches == F.lt_modulus.launches == len(pairs) - 1
+    # copied: x[:5] over (3, 5) by add and sub; x[:, None] and x[None, :4] over (15, 4) by each; the
+    # misaligned rows by all five
+    assert copies == [(3, 5, NLIMB)] * 2 + [(15, 4, NLIMB)] * 4 + [(15, NLIMB)] * 5
+
+
+@pytest.mark.parametrize("shape, rows, stride", [
+    ((NLIMB,), (1820,), 0),  # a ()-shaped constant against a batch
+    ((1820, NLIMB), (1820,), 16),  # a batch
+    ((1, NLIMB), (1820,), 0),  # a one-row batch
+    ((8, 5, NLIMB), (8, 5), 16),  # leading dims, contiguous
+    ((1, 5, NLIMB), (8, 5), None),  # five rows repeated eight times: no single stride
+    ((8, 1, NLIMB), (8, 5), None),  # each row repeated five times
+], ids=str)
+def test_row_stride_of_contiguous_and_broadcast_operands(shape, rows, stride):
+    assert F.row_stride(torch.zeros(shape, dtype=torch.int64), rows) == stride
+
+
+def test_row_stride_of_views():
+    """An expanded constant reads stride 0, a column of (B, 5, 16) stride
+    80, also against rows (1, B), every other row of it 160; the column
+    repeated twice, and limbs that are not contiguous, None."""
+    row = torch.zeros(NLIMB, dtype=torch.int64)
+    wide = torch.zeros(1820, 5, NLIMB, dtype=torch.int64)
+    assert F.row_stride(row.expand(1820, NLIMB), (1820,)) == 0
+    assert F.row_stride(row.expand(2, 3, NLIMB), (2, 3)) == 0
+    assert F.row_stride(wide[:, 3], (1820,)) == 80
+    assert F.row_stride(wide[:, 3], (1, 1820)) == 80
+    assert F.row_stride(wide[:, 3].expand(2, 1820, NLIMB), (2, 1820)) is None
+    assert F.row_stride(wide[::2, 1], (910,)) == 160
+    assert F.row_stride(torch.zeros(1820, NLIMB, 5, dtype=torch.int64).transpose(-1, -2), (1820, 5)) is None
+
+
+@pytest.mark.parametrize("shapes", [((1820, 16), (16,)), ((16,), (1820, 16)), ((3, 1, 16), (1, 4, 16)),
+                                    ((2, 3, 16), (3, 16)), ((5, 16),), ((16,), (16,)), ((0, 16), (1, 16))], ids=str)
+def test_broadcast_rows_matches_torch(shapes):
+    """K12's broadcast of the operands' leading shapes is torch's."""
+    operands = [torch.zeros(s, dtype=torch.int64) for s in shapes]
+    assert F.broadcast_rows(*operands) == tuple(torch.broadcast_shapes(*shapes)[:-1])
+
+
+def test_broadcast_rows_refuses_what_torch_refuses():
+    with pytest.raises(ValueError, match="do not broadcast"):
+        F.broadcast_rows(torch.zeros(3, 16, dtype=torch.int64), torch.zeros(4, 16, dtype=torch.int64))

@@ -5,8 +5,6 @@ keccak.cu): its tables, and its kernel body compiled for the host."""
 
 import ctypes
 import re
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
@@ -23,6 +21,8 @@ from snark_verifier_tpu_torch.ops import encode as E
 from snark_verifier_tpu_torch.ops import field as F
 from snark_verifier_tpu_torch.ops import keccak as K
 from snark_verifier_tpu_torch.ops.convert import limbs_to_tensor, tensor_to_limbs
+
+from host_cuda import compile_body
 
 # the lengths of the 7 hashes of a Keccak-transcript verify of the k=8 proof, in order
 VERIFY_LENGTHS = [256, 33, 33, 96, 224, 448, 160]
@@ -75,19 +75,6 @@ def test_k11_tables_match_oracle_and_plain():
     assert sorted(k11_table("PI_SRC")) == list(range(25))
 
 
-# Enough of cuda_runtime.h for K11's kernel body to compile as host C++: a
-# thread is a call with blockIdx/threadIdx set.
-HOST_SHIM = """#pragma once
-#include <cstdint>
-#define __device__
-#define __forceinline__ inline
-#define __global__
-#define __constant__
-#define __launch_bounds__(n)
-#define __restrict__
-struct svtpu_dim { unsigned x; };
-static svtpu_dim threadIdx, blockIdx, blockDim;
-"""
 HOST_DRIVER = """
 extern "C" void run_rows(const int64_t* data, int64_t length, int64_t* out, int64_t rows) {
   blockDim.x = KECCAK_BLOCK;
@@ -105,17 +92,7 @@ def test_k11_kernel_body_compiled_for_the_host_matches_oracle(tmp_path):
     compiled as host C++ (one call a thread), give the oracle's digests and
     the plain version's at the verify's lengths and at the padding's edges:
     empty, one byte short of a block, a block, one over, two blocks."""
-    cxx = shutil.which("c++") or shutil.which("g++")
-    if cxx is None:
-        pytest.skip("no host C++ compiler to build K11's kernel body for the CPU")
-    source = K11_SOURCE.read_text()
-    (tmp_path / "cuda_runtime.h").write_text(HOST_SHIM)
-    body = tmp_path / "k11_host.cpp"
-    body.write_text(source[: source.index('extern "C"')] + HOST_DRIVER)
-    lib = tmp_path / "libk11_host.so"
-    subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-Wno-unknown-pragmas", f"-I{tmp_path}",
-                    "-o", str(lib), str(body)], check=True, capture_output=True, timeout=240)
-    run = ctypes.CDLL(str(lib)).run_rows
+    run = compile_body(K11_SOURCE, HOST_DRIVER, tmp_path).run_rows
     run.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64]
     rng = np.random.default_rng(13)
     for length in sorted({0, 1, 135, 136, 137, 272, *VERIFY_LENGTHS}):

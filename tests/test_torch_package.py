@@ -164,12 +164,14 @@ def test_build_command_targets_the_ignored_build_dir():
         assert [Path(c).name for c in cmd if c.endswith(".cu")] == [source]
     link = _build.link_command(out, objs)
     assert "-shared" in link and link[link.index("-o") + 1] == str(out) and link[-len(objs):] == list(map(str, objs))
-    assert _build.KERNEL_SOURCES == ("field.cu", "curve.cu", "msm.cu", "tower.cu", "poseidon.cu", "keccak.cu")
+    assert _build.KERNEL_SOURCES == ("field.cu", "curve.cu", "msm.cu", "tower.cu", "poseidon.cu", "keccak.cu",
+                                     "field_add.cu")
     assert all((_build.CSRC_DIR / s).exists() for s in _build.KERNEL_SOURCES + _build.HEADERS)
     assert set(_build.SIGNATURES) >= {
         "svtpu_g1_double", "svtpu_horner_combine", "svtpu_fq12_mul", "svtpu_msm_window", "svtpu_msm_horner",
         "svtpu_miller_loop", "svtpu_final_exp", "svtpu_mont_pow", "svtpu_g1_add_lanes", "svtpu_poseidon_perm",
-        "svtpu_keccak256",
+        "svtpu_keccak256", "svtpu_field_add", "svtpu_field_sub", "svtpu_field_neg", "svtpu_reduce_u256",
+        "svtpu_lt_modulus",
     }
     # every C entry of the sources is bound, and nothing else
     entries = {m for s in _build.KERNEL_SOURCES
@@ -181,9 +183,15 @@ def test_build_command_targets_the_ignored_build_dir():
 def test_wrappers_route_cpu_tensors_to_plain_and_validate():
     a = convert.limbs_to_tensor(F.FQ.encode([3, 5]), "cpu")
     wrappers = (F.mont_mul, F.mont_pow, C.g1_add, C.g1_double, MK.msm_scan, C.g1_add_select, MK.horner_combine,
-                T.fq12_mul_flat, MK.msm_window, MK.msm_horner, PAIR.miller_loop_pair, PAIR.final_exponentiation)
+                T.fq12_mul_flat, MK.msm_window, MK.msm_horner, PAIR.miller_loop_pair, PAIR.final_exponentiation,
+                F.add, F.sub, F.neg, F.reduce_u256, F.lt_modulus)
     launches = [w.launches for w in wrappers]
     assert torch.equal(F.mont_mul(a, a, F.FQ), F.mont_mul_plain(a, a, F.FQ))
+    assert torch.equal(F.add(a, a[0], F.FQ), F.add_plain(a, a[0], F.FQ))
+    assert torch.equal(F.sub(a[0], a, F.FQ), F.sub_plain(a[0], a, F.FQ))
+    assert torch.equal(F.neg(a, F.FQ), F.neg_plain(a, F.FQ))
+    assert torch.equal(F.reduce_u256(a, F.FR), F.reduce_u256_plain(a, F.FR))
+    assert torch.equal(F.lt_modulus(a, F.FR), F.lt_modulus_plain(a, F.FR))
     assert torch.equal(F.mont_pow(a, 7, F.FQ), F.mont_pow_plain(a, 7, F.FQ))
     g = C.g1_from_affine_ints([None, (1, 2)], "cpu")
     assert all(torch.equal(x, y) for x, y in zip(C.g1_add(g, g), C.g1_add_plain(g, g)))
@@ -207,6 +215,15 @@ def test_wrappers_route_cpu_tensors_to_plain_and_validate():
         MK.msm_scan(torch.zeros(8, 3, 1, 2, 16, dtype=torch.int64), torch.zeros(2, 1, 64, dtype=torch.int64))
     with pytest.raises(ValueError):
         use_kernel(a, torch.empty(2, 16, dtype=torch.int64, device="meta"))
+    for op in (F.add, F.sub):  # K12's routes: mixed devices and bad limbs raise, nothing falls back
+        with pytest.raises(ValueError, match="one CUDA device or all on the CPU"):
+            op(a, a.to("meta"), F.FQ)
+        with pytest.raises(ValueError):
+            op(a, a.int(), F.FQ)
+    for op in (F.neg, F.reduce_u256, F.lt_modulus):
+        with pytest.raises(ValueError):
+            op(a[..., :8], F.FQ)
+    assert [w.launches for w in wrappers] == launches
 
 
 def test_convert_round_trips_jax_side_numpy():
